@@ -1,0 +1,94 @@
+"""Where the main path's time goes on the card.
+
+Builds ``chip_smoke.py``'s inputs (the layout-local graph at |V| =
+100,000, ``radius=0.5``, ``n_strips=512``, B=8 batch) and, for each path
+-- (a) fused ``evaluate``, (b) ``evaluate_batch`` with the plan made per
+call (as ``chip_smoke.py`` calls it), (b') the same with the plan made
+once and passed in, (c) kernels ``evaluate`` -- prints the wall time,
+the device time ``torch.profiler`` records, the device's idle share of
+the wall time, and the kernels that take the most device time.
+
+Usage (from the repository root, on a CUDA machine)::
+
+    python tools/profile_main_path.py
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import statistics
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+RUNS = 3
+
+
+def profile(label, fn, card):
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(RUNS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(RUNS):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / RUNS
+    # device-side events only (kernels and copies): CPU ops carry the
+    # device time of what they launch too, which would count it twice
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    device_us = sum(e.self_device_time_total for e in events) / RUNS
+    print(f"{label}: wall {statistics.median(walls):.3f} ms unprofiled "
+          f"(median of {RUNS}), {wall:.3f} ms profiled; device "
+          f"{device_us / 1e3:.3f} ms; idle share "
+          f"{1 - device_us / 1e3 / wall:.3f} on {card}")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    for e in top:
+        print(f"    {e.self_device_time_total / RUNS / 1e3:9.4f} ms "
+              f"x{e.count // RUNS:<5d} {e.key[:90]}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_main_path: needs a CUDA device", file=sys.stderr)
+        return 2
+    from chip_smoke import BATCH, N_STRIPS, RADIUS, card_line, inputs
+    from repro_torch.api import EvalConfig, Evaluator
+
+    card = card_line()
+    pos, edges, batch = inputs()
+    cfg = EvalConfig(radius=RADIUS, n_strips=N_STRIPS)
+    ev = Evaluator(cfg)
+    kev = Evaluator(dataclasses.replace(cfg, backend="kernels"))
+    plan = ev.plan(batch, edges)
+    t0 = time.perf_counter()
+    ev.plan(batch, edges)
+    print(f"host planning of the B={BATCH} batch: "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    profile("(a) evaluate fused", lambda: ev.evaluate(pos, edges), card)
+    profile(f"(b) evaluate_batch B={BATCH}, plan per call",
+            lambda: ev.evaluate_batch(batch, edges), card)
+    profile(f"(b') evaluate_batch B={BATCH}, plan passed in",
+            lambda: ev.evaluate_batch(batch, edges, plan=plan), card)
+    profile("(c) evaluate kernels", lambda: kev.evaluate(pos, edges), card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
