@@ -8,14 +8,18 @@ JAX or of the JAX package.
 
 Phases (any failed check raises):
 
-1. **Build** both hand-written kernels from ``src/repro_torch/kernels/csrc``
-   with ``nvcc`` for ``sm_90a`` (one compiler per source, started
-   together) and print the card's name and power limit.
+1. **Build** the four hand-written kernels from
+   ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
+   compiler per source, started together) and print the card's name and
+   power limit.
 2. **Kernel vs plain on the card**: the strip-reversal kernel at every
    ``(rows, cap)`` slab the main path below hands it and on an
    adversarial slab (ties, shared endpoints, a cap above one
    shared-memory tile, invalid rows); the occlusion-pair kernel at the
-   main path's padded size and on exact ``d2 == (2r)^2`` pairs.
+   main path's padded size, at the exact path's, and on exact
+   ``d2 == (2r)^2`` pairs; the segment-crossing and crossing-angle
+   kernels on the adversarial layouts of
+   ``repro_torch.kernels.fixtures`` and at the exact path's size.
    Integers equal, deviation sums at rtol 1e-5.
 3. **Main path at full size**: the layout-local graph at |V| = 100,000
    (about 2e5 edges), ``radius=0.5``, ``n_strips=512``, both
@@ -27,9 +31,15 @@ Phases (any failed check raises):
    rtol 1e-5) with ``overflow == 0``, both kernels' launch counts
    must have grown, and the shapes each kernel was launched on must be
    the ones checked and timed in phases 2 and 4.
+   (d) the exact all-pairs path, ``repro_torch.api.evaluate_exact`` with
+   ``use_kernels=False`` and ``True``, on ego-Facebook at its published
+   size (4,039 vertices, 88,234 edges, random layout), against the JAX
+   reference's op-by-op constants; each call must launch the
+   segment-crossing, crossing-angle and occlusion-pair kernels once
+   each, on the shapes checked and timed here.
 4. **Timings**: median of 5 CUDA-event-timed runs after a warm-up, for
-   (a)-(c) and for each kernel at its main-path shapes beside its plain
-   version and its bound.
+   (a)-(d) and for each kernel at its shapes on those paths beside its
+   plain version and its bound.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card line
 from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -65,9 +75,26 @@ ALU_OPS_PER_S = 33.5e12
 # deviation: sub, sub, min, sub, div, add (abs is a free source modifier).
 # Occlusion, per unordered valid pair: 2 sub, 2 mul, 1 add, 1 compare,
 # 1 add to the count (the i < j order is the choice of unordered pairs).
+# Crossing test, per unordered pair of valid edges: the differences
+# p2 - p1, q2 - p1, q1 - p2 (6 sub; q - p of each segment is per edge),
+# four cross products (8 mul, 4 sub), the two straddle tests (3 each: a
+# min, a max and one compare pair folded into a predicate op), four int
+# compares for shared endpoints (folded), one predicate op to join, one
+# add: 30.  Per crossing, the deviation: sub, sub, min, sub, div or mul,
+# add: 6.
 REV_OPS_PER_UNORDERED_PAIR = 10
 REV_OPS_PER_CROSSING = 6
 OCC_OPS_PER_PAIR = 7
+CROSS_OPS_PER_UNORDERED_PAIR = 30
+ANGLE_OPS_PER_CROSSING = 6
+# repeats of the plain all-pairs versions at the exact path's size (each
+# call takes about a second)
+EXACT_PLAIN_REPEATS = 3
+
+# the exact path's inputs: ego-Facebook at its published size (paper
+# Table 1), the inputs of benchmarks/table3_accuracy.py at scale 1.0
+EXACT_DATASET, EXACT_GRAPH_SEED, EXACT_LAYOUT_SEED = "ego-Facebook", 0, 1
+EXACT_RADIUS = 0.5
 
 # JAX reference constants for exactly these inputs, made on the CPU with
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py
@@ -166,6 +193,21 @@ REFERENCE = {
         },
     ],
 }
+# JAX reference constants of repro.api.evaluate_exact(pos, edges,
+# config=EvalConfig(radius=0.5), use_kernels=False) on the exact path's
+# inputs, made on the CPU with
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --exact
+# (op by op; both routes of the port are held to them)
+EXACT_REFERENCE = {
+    "node_occlusion": 2533,
+    "minimum_angle": 0.01865684986114502,
+    "edge_length_variation": 0.0015983630437403917,
+    "edge_crossing": 900016170,
+    "edge_crossing_angle": 0.7149947881698608,
+    "crossing_count_for_angle": 900016170,
+    "overflow": 0,
+}
+
 INT_FIELDS = ("node_occlusion", "edge_crossing", "crossing_count_for_angle",
               "overflow")
 FLOAT_FIELDS = ("minimum_angle", "edge_length_variation",
@@ -351,6 +393,99 @@ def occlusion_bound_ms(x, ok):
         else "operations"
 
 
+def exact_inputs():
+    from repro_torch.graphs.datasets import paper_graph
+    from repro_torch.graphs.layouts import random_layout
+    edges, n_v = paper_graph(EXACT_DATASET, seed=EXACT_GRAPH_SEED)
+    return random_layout(n_v, seed=EXACT_LAYOUT_SEED), edges
+
+
+def edge_arrays(pos, edges, valid, dev):
+    """The crossing kernels' padded edge arrays of a layout on ``dev``,
+    as the exact path builds them."""
+    import torch
+    from repro_torch.kernels.ops import _edge_arrays
+    return _edge_arrays(torch.as_tensor(pos, device=dev),
+                        torch.as_tensor(edges, device=dev),
+                        None if valid is None
+                        else torch.as_tensor(valid, device=dev))
+
+
+def compare_crossing(label, args, ideal):
+    """Both crossing kernels against their plain versions.  Returns
+    (count error, abs deviation error, crossings)."""
+    import torch
+    from repro_torch.kernels.crossing_angle_sum import (
+        crossing_angle_plain, crossing_angle_stats)
+    from repro_torch.kernels.segment_crossing import (crossing_count,
+                                                      crossing_count_plain)
+    x1, y1, x2, y2, th, v, u, ok = args
+    got = int(crossing_count(x1, y1, x2, y2, v, u, ok))
+    torch.cuda.synchronize()
+    want = int(crossing_count_plain(x1, y1, x2, y2, v, u, ok))
+    check(got == want,
+          f"segment_crossing {got} != plain {want} on {label}")
+    cnt, dsum = crossing_angle_stats(*args, ideal=ideal)
+    torch.cuda.synchronize()
+    p_cnt, p_dsum = crossing_angle_plain(*args, ideal=ideal)
+    check(int(cnt) == int(p_cnt) == want,
+          f"crossing_angle_sum count {int(cnt)}, plain {int(p_cnt)}, "
+          f"crossings {want} on {label}")
+    dev_err = abs(float(dsum) - float(p_dsum))
+    check(dev_err <= RTOL * abs(float(p_dsum)),
+          f"crossing_angle_sum deviation {float(dsum)!r} != plain "
+          f"{float(p_dsum)!r} on {label}")
+    return abs(got - want), dev_err, want
+
+
+def crossing_bound_ms(n, n_valid, crossings, angle):
+    """The least time for one crossing sweep: the edge arrays read once
+    and the scalar outputs written once over HBM, or the operations on
+    the unordered pairs of valid edges (and the deviation on crossing
+    pairs) over the FP32 issue rate."""
+    pairs = n_valid * (n_valid - 1) / 2
+    ops = CROSS_OPS_PER_UNORDERED_PAIR * pairs
+    nbytes = n * (4 * 4 + 2 * 4 + 1) + 8
+    if angle:
+        ops += ANGLE_OPS_PER_CROSSING * crossings
+        nbytes += n * 4 + 8
+    return max(nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S) * 1e3, \
+        "bytes" if nbytes / HBM_BYTES_PER_S > ops / ALU_OPS_PER_S \
+        else "operations"
+
+
+class recording_launches:
+    """Within the block, every kernel launch through the listed kernel
+    modules appends ``(kernel, shape of its first argument)``
+    to ``self.seen[-1]``; ``step()`` opens a new list."""
+
+    def __init__(self, *mods):
+        self.mods = mods
+        self.seen = []
+
+    def step(self):
+        self.seen.append([])
+
+    def __enter__(self):
+        self.launches = {mod: mod._launch for mod in self.mods}
+        for mod in self.mods:
+            mod._launch = self._recorder(mod)
+        return self
+
+    def _recorder(self, mod):
+        name = mod.__name__.rsplit(".", 1)[1]
+        launch = self.launches[mod]
+
+        def recording_launch(*args):
+            self.seen[-1].append((name, tuple(args[0].shape)))
+            return launch(*args)
+        return recording_launch
+
+    def __exit__(self, *exc):
+        for mod, launch in self.launches.items():
+            mod._launch = launch
+
+
 def check_scores(label, got, want):
     for f in INT_FIELDS:
         check(int(getattr(got, f)) == want[f],
@@ -375,13 +510,20 @@ def main() -> int:
     sys.path.insert(0, str(src))
 
     import numpy as np
-    from repro_torch.api import EvalConfig, Evaluator
+    from repro_torch.api import EvalConfig, Evaluator, evaluate_exact
     from repro_torch.core import engine
     from repro_torch.kernels import _build
+    from repro_torch.kernels import crossing_angle_sum as crossing_angle_mod
     from repro_torch.kernels import occlusion_pairs as occlusion_pairs_mod
+    from repro_torch.kernels import segment_crossing as segment_crossing_mod
     from repro_torch.kernels import strip_reversal as strip_reversal_mod
+    from repro_torch.kernels.crossing_angle_sum import (
+        crossing_angle_plain, crossing_angle_stats)
+    from repro_torch.kernels.fixtures import FIXTURES
     from repro_torch.kernels.occlusion_pairs import (
         TILE, occlusion_pairs, occlusion_pairs_plain)
+    from repro_torch.kernels.segment_crossing import (crossing_count,
+                                                      crossing_count_plain)
     from repro_torch.kernels.strip_reversal import (
         strip_reversal_rows, strip_reversal_rows_plain)
 
@@ -432,6 +574,23 @@ def main() -> int:
                   f"{tuple(args[0].shape)}", flush=True)
     print(f"shape (c) occlusion_pairs: ({n_pad},)", flush=True)
 
+    # the exact path's inputs and kernel shapes
+    epos, eedges = exact_inputs()
+    xcfg = EvalConfig(radius=EXACT_RADIUS)
+    print(f"exact graph: {EXACT_DATASET}, |V| = {epos.shape[0]}, "
+          f"|E| = {eedges.shape[0]}", flush=True)
+    xargs = edge_arrays(epos, eedges, None, dev)
+    e_pad = xargs[0].shape[0]
+    x_pad = -(-epos.shape[0] // TILE) * TILE
+    xocc_x = torch.zeros(x_pad, device=dev)
+    xocc_y = torch.zeros(x_pad, device=dev)
+    xocc_ok = torch.zeros(x_pad, dtype=torch.bool, device=dev)
+    xocc_x[:epos.shape[0]] = torch.from_numpy(epos[:, 0]).to(dev)
+    xocc_y[:epos.shape[0]] = torch.from_numpy(epos[:, 1]).to(dev)
+    xocc_ok[:epos.shape[0]] = True
+    print(f"shape (d) segment_crossing: ({e_pad},); crossing_angle_sum: "
+          f"({e_pad},); occlusion_pairs: ({x_pad},)", flush=True)
+
     # -- 2. kernel vs plain ------------------------------------------------
     rev_err = 0.0
     for path, items in slabs.items():
@@ -452,9 +611,26 @@ def main() -> int:
     check(got_b == want_b == 2,
           f"occlusion_pairs boundary fixture gave {got_b}, plain {want_b}, "
           "want 2")
-    occ_err = float(max(abs(int(got) - int(want)), abs(got_b - want_b)))
+    got_x = int(occlusion_pairs(xocc_x, xocc_y, xocc_ok, EXACT_RADIUS))
+    torch.cuda.synchronize()
+    want_x = int(occlusion_pairs_plain(xocc_x, xocc_y, xocc_ok,
+                                       EXACT_RADIUS))
+    check(got_x == want_x,
+          f"occlusion_pairs {got_x} != plain {want_x} at n={x_pad}")
+    occ_err = float(max(abs(int(got) - int(want)), abs(got_b - want_b),
+                        abs(got_x - want_x)))
+    cross_err, angle_err = 0.0, 0.0
+    for name, make in FIXTURES.items():
+        c_err, d_err, _ = compare_crossing(name, edge_arrays(*make(), dev),
+                                           xcfg.ideal_angle)
+        cross_err, angle_err = max(cross_err, c_err), max(angle_err, d_err)
+    c_err, d_err, crossings = compare_crossing(f"(d) ({e_pad},)", xargs,
+                                               xcfg.ideal_angle)
+    cross_err, angle_err = max(cross_err, c_err), max(angle_err, d_err)
     print(f"kernel vs plain: ok (strip_reversal max abs dev err {rev_err}, "
-          f"occlusion_pairs {int(got)} pairs, max abs err {occ_err})",
+          f"occlusion_pairs {int(got)} and {got_x} pairs, max abs err "
+          f"{occ_err}; segment_crossing {crossings} crossings, max abs err "
+          f"{cross_err}; crossing_angle_sum max abs dev err {angle_err})",
           flush=True)
 
     # -- 3. main path ------------------------------------------------------
@@ -462,37 +638,25 @@ def main() -> int:
     kev = Evaluator(kcfg)
     # record the shapes the main path launches each kernel on, to hold
     # them against the shapes checked and timed here
-    seen = []
-    launches_of = {mod: mod._launch for mod in (strip_reversal_mod,
-                                                occlusion_pairs_mod)}
-
-    def recorder(mod):
-        def recording_launch(*args):
-            seen[-1].append((mod.__name__.rsplit(".", 1)[1],
-                             tuple(args[0].shape)))
-            return launches_of[mod](*args)
-        return recording_launch
-
-    for mod in launches_of:
-        mod._launch = recorder(mod)
-    strip_reversal_rows.LAUNCHES = 0
-    occlusion_pairs.LAUNCHES = 0
+    kernel_mods = (strip_reversal_mod, occlusion_pairs_mod,
+                   segment_crossing_mod, crossing_angle_mod)
+    counters = (strip_reversal_rows, occlusion_pairs, crossing_count,
+                crossing_angle_stats)
+    for fn in counters:
+        fn.LAUNCHES = 0
     runs = {}
     launches = {}
     seen_shapes = {}
-    try:
+    with recording_launches(*kernel_mods) as rec:
         for path, call in (("a", lambda: ev.evaluate(pos, edges)),
                            ("b", lambda: ev.evaluate_batch(batch, edges)),
                            ("c", lambda: kev.evaluate(pos, edges))):
             before = (strip_reversal_rows.LAUNCHES, occlusion_pairs.LAUNCHES)
-            seen.append([])
+            rec.step()
             runs[path] = call()
             launches[path] = (strip_reversal_rows.LAUNCHES - before[0],
                               occlusion_pairs.LAUNCHES - before[1])
-            seen_shapes[path] = sorted(seen[-1])
-    finally:
-        for mod, launch in launches_of.items():
-            mod._launch = launch
+            seen_shapes[path] = sorted(rec.seen[-1])
     rev_launches = strip_reversal_rows.LAUNCHES
     occ_launches = occlusion_pairs.LAUNCHES
     print(f"launches per path (strip_reversal, occlusion_pairs): "
@@ -528,14 +692,54 @@ def main() -> int:
     print("main path: ok, equal to the JAX reference constants "
           f"(ints exact, floats rtol {RTOL})", flush=True)
 
+    # (d) the exact path, both routes, each with the counts set to 0
+    # just before it and read just after
+    xruns = {}
+    xlaunches = {}
+    with recording_launches(*kernel_mods) as rec:
+        for uk in (False, True):
+            for fn in counters:
+                fn.LAUNCHES = 0
+            rec.step()
+            xruns[uk] = evaluate_exact(epos, eedges, config=xcfg,
+                                       use_kernels=uk)
+            xlaunches[uk] = tuple(fn.LAUNCHES for fn in counters)
+            planned = sorted([("crossing_angle_sum", (e_pad,)),
+                              ("occlusion_pairs", (x_pad,)),
+                              ("segment_crossing", (e_pad,))])
+            check(sorted(rec.seen[-1]) == planned,
+                  f"(d) use_kernels={uk} launched the kernels on "
+                  f"{sorted(rec.seen[-1])}, the shapes checked and timed "
+                  f"here are {planned}")
+    print("launches in (d) (strip_reversal, occlusion_pairs, "
+          f"segment_crossing, crossing_angle_sum): {xlaunches}", flush=True)
+    for uk, got_launches in xlaunches.items():
+        check(got_launches == (0, 1, 1, 1),
+              f"(d) use_kernels={uk} launched {got_launches}, want one "
+              "launch of each exact-path kernel")
+        check(xruns[uk].overflow == 0, "(d) overflow")
+        check_scores(f"(d) exact use_kernels={uk}", xruns[uk],
+                     EXACT_REFERENCE)
+        print(f"(d) use_kernels={uk} {xruns[uk]}")
+    occ_launches += sum(n[1] for n in xlaunches.values())
+    cross_launches = sum(n[2] for n in xlaunches.values())
+    angle_launches = sum(n[3] for n in xlaunches.values())
+    print("exact path: ok, equal to the JAX reference constants "
+          f"(ints exact, floats rtol {RTOL})", flush=True)
+
     # -- 4. timings --------------------------------------------------------
     path_ms = {
         "a": cuda_ms(lambda: ev.evaluate(pos, edges)),
         "b": cuda_ms(lambda: ev.evaluate_batch(batch, edges)),
         "c": cuda_ms(lambda: kev.evaluate(pos, edges)),
     }
+    for uk in (False, True):
+        path_ms[f"d{int(uk)}"] = cuda_ms(lambda: evaluate_exact(
+            epos, eedges, config=xcfg, use_kernels=uk))
     for k, label in (("a", "evaluate fused"), ("b", f"evaluate_batch B={BATCH}"),
-                     ("c", "evaluate kernels")):
+                     ("c", "evaluate kernels"),
+                     ("d0", "evaluate_exact use_kernels=False"),
+                     ("d1", "evaluate_exact use_kernels=True")):
         print(f"time ({k}) {label}: {path_ms[k]:.3f} ms "
               f"(median of {REPEATS}, CUDA events) on {card}", flush=True)
 
@@ -563,6 +767,41 @@ def main() -> int:
     print(f"time occlusion_pairs (c) ({n_pad},): kernel {occ_ms:.4f} ms, "
           f"plain {occ_plain:.4f} ms, bound {occ_bound:.5f} ms ({occ_by}) "
           f"on {card}", flush=True)
+    xocc_ms = cuda_ms(lambda: occlusion_pairs(xocc_x, xocc_y, xocc_ok,
+                                              EXACT_RADIUS), inner=10)
+    xocc_plain = cuda_ms(lambda: occlusion_pairs_plain(
+        xocc_x, xocc_y, xocc_ok, EXACT_RADIUS))
+    xocc_bound, xocc_by = occlusion_bound_ms(xocc_x, xocc_ok)
+    print(f"time occlusion_pairs (d) ({x_pad},): kernel {xocc_ms:.4f} ms, "
+          f"plain {xocc_plain:.4f} ms, bound {xocc_bound:.5f} ms "
+          f"({xocc_by}) on {card}", flush=True)
+    # (c) launches it once, (d) twice
+    occ_ms += 2 * xocc_ms
+    occ_plain += 2 * xocc_plain
+    occ_bound += 2 * xocc_bound
+
+    x1, y1, x2, y2, th, v, u, ok = xargs
+    n_valid = float(ok.sum())
+    cross_ms = cuda_ms(lambda: crossing_count(x1, y1, x2, y2, v, u, ok),
+                       inner=3)
+    cross_plain = cuda_ms(lambda: crossing_count_plain(x1, y1, x2, y2, v, u,
+                                                       ok),
+                          repeats=EXACT_PLAIN_REPEATS)
+    cross_bound, cross_by = crossing_bound_ms(e_pad, n_valid, crossings,
+                                              angle=False)
+    print(f"time segment_crossing (d) ({e_pad},): kernel {cross_ms:.4f} ms, "
+          f"plain {cross_plain:.4f} ms (median of {EXACT_PLAIN_REPEATS}), "
+          f"bound {cross_bound:.5f} ms ({cross_by}) on {card}", flush=True)
+    angle_ms = cuda_ms(lambda: crossing_angle_stats(
+        *xargs, ideal=xcfg.ideal_angle), inner=3)
+    angle_plain = cuda_ms(lambda: crossing_angle_plain(
+        *xargs, ideal=xcfg.ideal_angle), repeats=EXACT_PLAIN_REPEATS)
+    angle_bound, angle_by = crossing_bound_ms(e_pad, n_valid, crossings,
+                                              angle=True)
+    print(f"time crossing_angle_sum (d) ({e_pad},): kernel {angle_ms:.4f} "
+          f"ms, plain {angle_plain:.4f} ms (median of "
+          f"{EXACT_PLAIN_REPEATS}), bound {angle_bound:.5f} ms "
+          f"({angle_by}) on {card}", flush=True)
 
     kernels = [
         dict(name="strip_reversal", route="cuda",
@@ -578,9 +817,25 @@ def main() -> int:
              launches=occ_launches, max_abs_err=occ_err, ms=occ_ms,
              plain_ms=occ_plain, bound_ms=occ_bound, bound_by=occ_by,
              library_ms=None),
+        dict(name="segment_crossing", route="cuda",
+             source="src/repro_torch/kernels/csrc/segment_crossing.cu",
+             replaces="src/repro/kernels/segment_crossing.py:39",
+             launches=cross_launches, max_abs_err=cross_err,
+             ms=cross_launches * cross_ms,
+             plain_ms=cross_launches * cross_plain,
+             bound_ms=cross_launches * cross_bound, bound_by=cross_by,
+             library_ms=None),
+        dict(name="crossing_angle_sum", route="cuda",
+             source="src/repro_torch/kernels/csrc/crossing_angle_sum.cu",
+             replaces="src/repro/kernels/crossing_angle_sum.py:27",
+             launches=angle_launches, max_abs_err=angle_err,
+             ms=angle_launches * angle_ms,
+             plain_ms=angle_launches * angle_plain,
+             bound_ms=angle_launches * angle_bound, bound_by=angle_by,
+             library_ms=None),
     ]
     print("kernel times are summed over every launch of one pass of "
-          "(a)-(c); launches are counted in that pass", flush=True)
+          "(a)-(d); launches are counted in that pass", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

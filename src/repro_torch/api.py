@@ -7,18 +7,23 @@
 >>> batch = ev.evaluate_batch(batch_pos, edges) # B layouts, one pass
 >>> scores.normalized()                         # [0, 1] readability view
 
+>>> exact = evaluate_exact(pos, edges, config=EvalConfig(radius=0.5))
+
 Backends served: ``"fused"`` (plan-cached session, shape-bucketed),
 ``"eager"`` (plan per call) and ``"kernels"`` (flat strip buckets and the
 exact all-pairs occlusion kernel).  ``"distributed"``,
 ``"graph_sharded"`` and ``precision="bfloat16"`` are accepted by
 :class:`EvalConfig` (its digest needs them) but raise
 ``NotImplementedError`` here, as do ``register_layout`` / ``update`` /
-``search``: they are still to port.
+``search``: they are still to port.  :func:`evaluate_exact` is the exact
+all-pairs reference path (paper S3.1), the ground truth of the enhanced
+metrics.
 
-**Device rule**: ``Evaluator(config, device=None)`` runs on CUDA and
-raises when no CUDA device exists; pass ``device="cpu"`` to run on the
-CPU.  The device is not a config field, so ``EvalConfig`` and its
-``digest()`` are the reference's.
+**Device rule**: ``Evaluator(config, device=None)`` and
+``evaluate_exact(..., device=None)`` run on CUDA and raise when no CUDA
+device exists; pass ``device="cpu"`` to run on the CPU.  The device is
+not a config field, so ``EvalConfig`` and its ``digest()`` are the
+reference's.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from repro_torch.core import engine
 from repro_torch.core.engine import ALL_METRICS  # noqa: F401  (re-export)
 from repro_torch.core.keys import (EvalConfig, pow2_bucket,  # noqa: F401
                                    pow2_chunks, topology_hash)
+from repro_torch.core.metrics import evaluate_exact  # noqa: F401
 from repro_torch.core.scores import (ReadabilityScores,  # noqa: F401
                                      host_batch, scores_from_batch,
                                      scores_from_result)
@@ -40,9 +46,9 @@ from repro_torch.launch.session import EvalSession
 __all__ = [
     "ALL_METRICS", "CapacityError", "EvalConfig", "EvalSession",
     "Evaluator", "InvalidInputError", "ReadabilityError",
-    "ReadabilityScores", "pow2_bucket", "pow2_chunks", "scores_from_batch",
-    "scores_from_result", "topology_hash", "validate_batch",
-    "validate_request",
+    "ReadabilityScores", "evaluate_exact", "pow2_bucket", "pow2_chunks",
+    "scores_from_batch", "scores_from_result", "topology_hash",
+    "validate_batch", "validate_request",
 ]
 
 SERVED_BACKENDS = ("fused", "eager", "kernels")

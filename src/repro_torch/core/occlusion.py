@@ -5,9 +5,9 @@ Two vertices are occluded when their centre distance is below the disc
 diameter ``2r``; ``N_c`` counts occluded unordered pairs.  Vertices are
 bucketed per cell and each cell is compared densely with itself (i < j)
 and with its half neighbourhood: exact, because the cell size is >= 2r.
-The exact all-pairs count is the occlusion-pair kernel
-(:mod:`repro_torch.kernels.occlusion_pairs`), used by
-``backend="kernels"``.
+The exact all-pairs count (:func:`count_occlusions_exact`) is the
+occlusion-pair kernel (:mod:`repro_torch.kernels.occlusion_pairs`), also
+used by ``backend="kernels"``.
 """
 
 from __future__ import annotations
@@ -16,9 +16,18 @@ import numpy as np
 import torch
 
 from repro_torch.core import grid as gridlib
+from repro_torch.kernels import ops
 
 # elements of the (rows, cap, 5*cap) pair tiles one sweep block may hold
 _PAIR_BUDGET = 1 << 24
+
+
+def count_occlusions_exact(pos, radius, *, valid=None):
+    """Exact N_c: all vertex pairs (i < j), both valid, with
+    ``dist^2 < (2r)^2``.  On CUDA tensors the occlusion-pair kernel
+    sweeps the pairs; on CPU tensors its plain version.  Returns an int64
+    scalar tensor."""
+    return ops.occlusion_count_op(pos, radius, valid=valid)
 
 
 def _d2(ax, ay, bx, by):

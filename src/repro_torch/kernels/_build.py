@@ -3,12 +3,14 @@
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` entry and is compiled
 on first use by ``nvcc`` into its own shared library, loaded with
 ``ctypes``.  Libraries live under ``build/repro_torch/`` at the root of
-the checkout, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  :func:`build_all`
+the checkout, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds
+and an unchanged one is reused.  :func:`build_all`
 starts one ``nvcc`` per source at once.
 
 No ``--use_fast_math``: the strip-reversal deviation must stay an IEEE
-division, as in the reference.
+division, as in the reference, and the crossing kernels' comparisons
+must see NaN (an invalid slot is NaN there).
 """
 
 from __future__ import annotations
@@ -35,6 +37,10 @@ ENTRY_POINTS = {
         ctypes.c_int, ctypes.c_int] + [_P] * 3),
     "occlusion_pairs": ("occlusion_pairs_launch", [_P] * 3 + [
         ctypes.c_int, ctypes.c_float] + [_P] * 2),
+    "segment_crossing": ("segment_crossing_launch", [_P] * 7 + [
+        ctypes.c_int] + [_P] * 2),
+    "crossing_angle_sum": ("crossing_angle_sum_launch", [_P] * 8 + [
+        ctypes.c_int, ctypes.c_float, ctypes.c_float] + [_P] * 3),
 }
 SOURCES = tuple(ENTRY_POINTS)
 
@@ -59,7 +65,8 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     """Where the shared library of ``csrc/<name>.cu`` is (or will be)."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.blake2b(src + " ".join(NVCC_FLAGS).encode(),
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.blake2b(src + headers + " ".join(NVCC_FLAGS).encode(),
                              digest_size=8).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

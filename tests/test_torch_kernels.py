@@ -1,4 +1,4 @@
-"""The two ported kernels: their plain PyTorch versions against the
+"""The ported kernels: their plain PyTorch versions against the
 reference on the CPU, and the CUDA kernels against the plain versions on
 the card (``gpu`` marker; skipped without a CUDA device).
 
@@ -9,6 +9,15 @@ the card (``gpu`` marker; skipped without a CUDA device).
 * occlusion pairs: the plain count equal to
   ``repro.kernels.ops.occlusion_count_op`` (interpret), including pairs
   placed exactly at ``d2 == (2r)^2``.
+* segment crossing and crossing-angle sum: the plain count and deviation
+  sum equal to ``repro.kernels.ops.crossing_count_op`` /
+  ``crossing_angle_op`` (the Pallas kernels in interpret mode) on random
+  edges, and to the naive oracles of ``repro.kernels.ref`` on the
+  adversarial fixtures of :mod:`repro_torch.kernels.fixtures`.  The
+  interpret-mode kernels run under ``jit``, where XLA's CPU backend
+  contracts the cross products into FMAs; the fixtures, whose
+  near-collinear layout is decided by that rounding, are therefore held
+  to the oracles, which run op by op.
 
 Tolerance: integer counts are equal; deviation sums agree at rtol 1e-5
 (float32 sums in a different order).  The reference is imported inside a
@@ -26,8 +35,12 @@ import torch
 
 from repro_torch.core.engine import DEFAULT_IDEAL
 from repro_torch.kernels import _build as t_build
+from repro_torch.kernels import crossing_angle_sum as t_ang
 from repro_torch.kernels import occlusion_pairs as t_occ
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import segment_crossing as t_cross
 from repro_torch.kernels import strip_reversal as t_rev
+from repro_torch.kernels.fixtures import FIXTURES, random_segments
 
 RTOL = 1e-5
 
@@ -38,7 +51,9 @@ def ref():
     import jax.numpy as jnp
     from repro.core import engine, grid
     from repro.kernels import ops
-    return types.SimpleNamespace(jnp=jnp, engine=engine, grid=grid, ops=ops)
+    from repro.kernels import ref as oracles
+    return types.SimpleNamespace(jnp=jnp, engine=engine, grid=grid, ops=ops,
+                                 oracles=oracles)
 
 
 @pytest.fixture
@@ -185,6 +200,127 @@ def test_entry_point_types_match_the_c_source(name):
     assert name in t_build.SOURCES
 
 
+def edge_arrays(layout, device="cpu"):
+    """The crossing kernels' padded ``(x1, y1, x2, y2, theta, v, u, ok)``
+    of a fixture layout, on ``device``."""
+    pos, edges, valid = _torch(layout, device)
+    return t_ops._edge_arrays(pos, edges, valid)
+
+
+def reference_edge_arrays(ref, layout):
+    """The same layout as the reference's unpadded edge arrays."""
+    pos, edges, valid = layout
+    p, q = pos[edges[:, 0]], pos[edges[:, 1]]
+    return [ref.jnp.asarray(a) for a in (p[:, 0], p[:, 1], q[:, 0], q[:, 1],
+                                         edges[:, 0], edges[:, 1], valid)]
+
+
+@pytest.mark.parametrize("n_e,seed", [(200, 0), (256, 1), (512, 2)])
+def test_plain_crossing_kernels_match_pallas(ref, n_e, seed):
+    layout = random_segments(n_e, seed=seed)
+    x1, y1, x2, y2, th, v, u, ok = edge_arrays(layout)
+    count = t_cross.crossing_count_plain(x1, y1, x2, y2, v, u, ok)
+    a_cnt, a_dev = t_ang.crossing_angle_plain(
+        x1, y1, x2, y2, th, v, u, ok, ideal=DEFAULT_IDEAL)
+    pos, edges, valid = (ref.jnp.asarray(a) for a in layout)
+    want = ref.ops.crossing_count_op(pos, edges, valid=valid)
+    w_cnt, w_dev = ref.ops.crossing_angle_op(pos, edges, valid=valid,
+                                             ideal=float(DEFAULT_IDEAL))
+    assert int(count) == int(want) == int(a_cnt) == int(w_cnt) > 0
+    np.testing.assert_allclose(float(a_dev), float(w_dev), rtol=RTOL)
+
+
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_plain_crossing_kernels_match_oracles_on_fixtures(ref, name):
+    layout = FIXTURES[name]()
+    x1, y1, x2, y2, th, v, u, ok = edge_arrays(layout)
+    count = t_cross.crossing_count_plain(x1, y1, x2, y2, v, u, ok,
+                                         row_block=37)
+    a_cnt, a_dev = t_ang.crossing_angle_plain(
+        x1, y1, x2, y2, th, v, u, ok, ideal=DEFAULT_IDEAL, row_block=64)
+    rx1, ry1, rx2, ry2, rv, ru, rok = reference_edge_arrays(ref, layout)
+    want = int(ref.oracles.crossing_count_ref(rx1, ry1, rx2, ry2, rv, ru,
+                                              rok))
+    w_cnt, w_dev = ref.oracles.crossing_angle_ref(
+        rx1, ry1, rx2, ry2, rv, ru, DEFAULT_IDEAL, rok)
+    assert int(count) == int(a_cnt) == want == int(w_cnt) > 0
+    np.testing.assert_allclose(float(a_dev), float(w_dev), rtol=RTOL)
+
+
+def contracted_crossing_count(layout):
+    """The crossing count with each cross product contracted as an FMA
+    (``a*b - c*d`` with ``a*b`` unrounded), emulated in float64."""
+    pos, edges, valid = layout
+    p, q = pos[edges[:, 0]], pos[edges[:, 1]]
+
+    def cross(px, py, qx, qy, rx, ry):
+        cd = ((qy - py) * (rx - px)).astype(np.float64)
+        ab = (qx - px).astype(np.float64) * (ry - py).astype(np.float64)
+        return (ab - cd).astype(np.float32)
+
+    a = lambda t: t[:, None]
+    b = lambda t: t[None, :]
+    x1, y1, x2, y2 = p[:, 0], p[:, 1], q[:, 0], q[:, 1]
+    d1 = cross(a(x1), a(y1), a(x2), a(y2), b(x1), b(y1))
+    d2 = cross(a(x1), a(y1), a(x2), a(y2), b(x2), b(y2))
+    d3 = cross(b(x1), b(y1), b(x2), b(y2), a(x1), a(y1))
+    d4 = cross(b(x1), b(y1), b(x2), b(y2), a(x2), a(y2))
+    straddle = lambda s, t: ((s <= 0) & (t >= 0)) | ((s >= 0) & (t <= 0))
+    v, u = edges[:, 0], edges[:, 1]
+    shared = ((a(v) == b(v)) | (a(v) == b(u)) | (a(u) == b(v))
+              | (a(u) == b(u)))
+    n = len(v)
+    upper = np.arange(n)[:, None] < np.arange(n)[None, :]
+    return int((straddle(d1, d2) & straddle(d3, d4) & ~shared & upper
+                & a(valid) & b(valid)).sum())
+
+
+def test_near_collinear_fixture_is_decided_by_rounding():
+    """On the near-collinear fixture an FMA-contracted cross product
+    changes the count: a kernel that let nvcc contract would fail it."""
+    layout = FIXTURES["near_collinear"]()
+    x1, y1, x2, y2, _, v, u, ok = edge_arrays(layout)
+    exact = int(t_cross.crossing_count_plain(x1, y1, x2, y2, v, u, ok))
+    assert contracted_crossing_count(layout) != exact
+    # integer fixtures have exact products: contraction cannot matter
+    assert contracted_crossing_count(FIXTURES["t_junctions"]()) == int(
+        t_ops.crossing_count_op(*_torch(FIXTURES["t_junctions"]()[:2]),
+                                valid=None))
+
+
+@pytest.mark.parametrize("kernel", ["segment_crossing", "crossing_angle_sum"])
+def test_crossing_wrappers_take_plain_route_on_cpu_only(kernel):
+    args = edge_arrays(FIXTURES["invalid_slots"]())
+    x1, y1, x2, y2, th, v, u, ok = args
+    if kernel == "segment_crossing":
+        wrapper = t_cross.crossing_count
+        call = lambda a: wrapper(*a[:4], *a[5:])
+        want = (t_cross.crossing_count_plain(x1, y1, x2, y2, v, u, ok),)
+    else:
+        wrapper = t_ang.crossing_angle_stats
+        call = lambda a: wrapper(*a, ideal=DEFAULT_IDEAL)
+        want = t_ang.crossing_angle_plain(*args, ideal=DEFAULT_IDEAL)
+    before = wrapper.LAUNCHES
+    got = call(args)
+    got = got if isinstance(got, tuple) else (got,)
+    assert wrapper.LAUNCHES == before
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        call([a.to("meta") for a in args])
+
+
+def test_edge_arrays_pad_to_the_tile():
+    layout = FIXTURES["invalid_slots"]()
+    x1, y1, x2, y2, th, v, u, ok = edge_arrays(layout)
+    e = layout[1].shape[0]
+    assert x1.shape == (t_cross.TILE,) and e < t_cross.TILE
+    assert torch.equal(ok[:e], torch.from_numpy(layout[2]))
+    assert not ok[e:].any()
+    assert (v[e:] == -1).all() and (u[e:] == -2).all()
+    assert (x1[e:] == 0).all() and (th[e:] == 0).all()
+    assert v.dtype == u.dtype == torch.int32 and ok.dtype == torch.bool
+
+
 # ---------------------------------------------------------------------------
 # on the card: kernel against plain version
 # ---------------------------------------------------------------------------
@@ -224,3 +360,28 @@ def test_occlusion_kernel_matches_plain_on_card(cuda, radius):
     got = t_occ.occlusion_pairs(*args, radius)
     torch.cuda.synchronize()
     assert int(got) == int(t_occ.occlusion_pairs_plain(*args, radius))
+
+
+CROSSING_CASES = sorted(FIXTURES) + ["random4096"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", CROSSING_CASES)
+def test_crossing_kernels_match_plain_on_card(cuda, name):
+    layout = (random_segments(4096, seed=11) if name == "random4096"
+              else FIXTURES[name]())
+    args = edge_arrays(layout, cuda)
+    x1, y1, x2, y2, th, v, u, ok = args
+    before = (t_cross.crossing_count.LAUNCHES,
+              t_ang.crossing_angle_stats.LAUNCHES)
+    count = t_cross.crossing_count(x1, y1, x2, y2, v, u, ok)
+    cnt, dev = t_ang.crossing_angle_stats(*args, ideal=DEFAULT_IDEAL)
+    torch.cuda.synchronize()
+    assert (t_cross.crossing_count.LAUNCHES,
+            t_ang.crossing_angle_stats.LAUNCHES) == (before[0] + 1,
+                                                     before[1] + 1)
+    want = t_cross.crossing_count_plain(x1, y1, x2, y2, v, u, ok)
+    assert int(count) == int(want)
+    p_cnt, p_dev = t_ang.crossing_angle_plain(*args, ideal=DEFAULT_IDEAL)
+    assert int(cnt) == int(p_cnt) == int(want)
+    np.testing.assert_allclose(float(dev), float(p_dev), rtol=RTOL)

@@ -1,10 +1,12 @@
 """Where the main path's time goes on the card.
 
 Builds ``chip_smoke.py``'s inputs (the layout-local graph at |V| =
-100,000, ``radius=0.5``, ``n_strips=512``, B=8 batch) and, for each path
--- (a) fused ``evaluate``, (b) ``evaluate_batch`` with the plan made per
-call (as ``chip_smoke.py`` calls it), (b') the same with the plan made
-once and passed in, (c) kernels ``evaluate`` -- prints the wall time,
+100,000, ``radius=0.5``, ``n_strips=512``, B=8 batch; ego-Facebook for
+the exact path) and, for each path -- (a) fused ``evaluate``, (b)
+``evaluate_batch`` with the plan made per call (as ``chip_smoke.py``
+calls it), (b') the same with the plan made once and passed in, (c)
+kernels ``evaluate``, (d) ``evaluate_exact`` with ``use_kernels`` False
+and True -- prints the wall time,
 the device time ``torch.profiler`` records, the device's idle share of
 the wall time, and the kernels that take the most device time.
 
@@ -68,8 +70,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_main_path: needs a CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import BATCH, N_STRIPS, RADIUS, card_line, inputs
-    from repro_torch.api import EvalConfig, Evaluator
+    from chip_smoke import (BATCH, EXACT_RADIUS, N_STRIPS, RADIUS,
+                            card_line, exact_inputs, inputs)
+    from repro_torch.api import EvalConfig, Evaluator, evaluate_exact
 
     card = card_line()
     pos, edges, batch = inputs()
@@ -87,6 +90,12 @@ def main() -> int:
     profile(f"(b') evaluate_batch B={BATCH}, plan passed in",
             lambda: ev.evaluate_batch(batch, edges, plan=plan), card)
     profile("(c) evaluate kernels", lambda: kev.evaluate(pos, edges), card)
+    epos, eedges = exact_inputs()
+    xcfg = EvalConfig(radius=EXACT_RADIUS)
+    for uk in (False, True):
+        profile(f"(d) evaluate_exact use_kernels={uk}",
+                lambda: evaluate_exact(epos, eedges, config=xcfg,
+                                       use_kernels=uk), card)
     return 0
 
 
