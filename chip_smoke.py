@@ -14,10 +14,12 @@ Phases (any failed check raises):
    power limit.
 2. **Kernel vs plain on the card**: the strip-reversal kernel at every
    ``(rows, cap)`` slab the main path below hands it and on an
-   adversarial slab (ties, shared endpoints, a cap above one
-   shared-memory tile, invalid rows); the occlusion-pair kernel at the
-   main path's padded size, at the exact path's, and on exact
-   ``d2 == (2r)^2`` pairs; the segment-crossing and crossing-angle
+   adversarial slab (ties, shared endpoints, a cap above one staging
+   window, invalid rows) and on slabs whose valid slots are no prefix
+   (:func:`masked_slabs`); the occlusion-pair kernel at the main path's
+   padded size, at the exact path's, on exact ``d2 == (2r)^2`` pairs and
+   on the tile layouts of :func:`occlusion_tile_cases`; the
+   segment-crossing and crossing-angle
    kernels on the adversarial layouts of
    ``repro_torch.kernels.fixtures`` and at the exact path's size.
    Integers equal, deviation sums at rtol 1e-5.
@@ -38,8 +40,11 @@ Phases (any failed check raises):
    segment-crossing, crossing-angle and occlusion-pair kernels once
    each, on the shapes checked and timed here.
 4. **Timings**: median of 5 CUDA-event-timed runs after a warm-up, for
-   (a)-(d) and for each kernel at its shapes on those paths beside its
-   plain version and its bound.
+   (a)-(d); for each kernel at its shapes on those paths, its time alone
+   on the device (median, min and max of 21 readings of back-to-back
+   launches of its C entry, whose outputs are then held against the
+   wrapper's result), its wrapper's time, its plain version's and its
+   bound, counted from the operations these inputs need.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card line
 from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -66,27 +71,41 @@ REPEATS = 5
 # x 1.98 GHz = 33.5e12 simple operations per second)
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 33.5e12
-# operations the functions need, on the valid slots only (the valid slots
-# of a strip row are a prefix, so no mask work is needed past them).
-# Strip reversal, per unordered pair {i, j} of a row: the reversal either
-# way is 4 float compares whose ANDs fold into predicate-combining
-# compares, shared endpoints are 4 int compares (also folded), one
-# predicate op joins them and one add counts: 10.  Per crossing, the
-# deviation: sub, sub, min, sub, div, add (abs is a free source modifier).
-# Occlusion, per unordered valid pair: 2 sub, 2 mul, 1 add, 1 compare,
-# 1 add to the count (the i < j order is the choice of unordered pairs).
+# operations the functions need on these inputs, on the valid slots only:
+# a test that only some pairs reach is charged to those pairs, counted by
+# the plain versions (the shared-endpoint mask left out where it says so).
+# Strip reversal, per unordered pair {i, j} of valid slots of a row: the
+# reversal in either order is 4 float compares (the ANDs folded into
+# predicate-combining compares) and one predicate op joining the two
+# orders: 5.  Per reversing pair (shared endpoints included): the 4 int
+# compares for shared endpoints, folded: 4.  Per crossing (a reversal
+# without a shared endpoint): one add to the count, and the deviation
+# sub, sub, min, sub, div, add (abs is a free source modifier): 7.
+# Occlusion, per unordered valid pair: 2 sub, 2 mul, 1 add, 1 compare: 6
+# (the i < j order is the choice of unordered pairs); per occluded pair,
+# one add to the count.
 # Crossing test, per unordered pair of valid edges: the differences
 # p2 - p1, q2 - p1, q1 - p2 (6 sub; q - p of each segment is per edge),
 # four cross products (8 mul, 4 sub), the two straddle tests (3 each: a
-# min, a max and one compare pair folded into a predicate op), four int
-# compares for shared endpoints (folded), one predicate op to join, one
-# add: 30.  Per crossing, the deviation: sub, sub, min, sub, div or mul,
-# add: 6.
-REV_OPS_PER_UNORDERED_PAIR = 10
-REV_OPS_PER_CROSSING = 6
-OCC_OPS_PER_PAIR = 7
-CROSS_OPS_PER_UNORDERED_PAIR = 30
+# min, a max and one compare pair folded into a predicate op), one
+# predicate op to join them: 25.  Per straddling pair (shared endpoints
+# included): 4 int compares for shared endpoints, folded: 4.  Per
+# crossing: one add to the count; and with the angle the deviation sub,
+# sub, min, sub, mul, add: 6.
+REV_OPS_PER_UNORDERED_PAIR = 5
+REV_OPS_PER_REVERSAL = 4
+REV_OPS_PER_CROSSING = 7
+OCC_OPS_PER_PAIR = 6
+OCC_OPS_PER_OCCLUSION = 1
+CROSS_OPS_PER_UNORDERED_PAIR = 25
+CROSS_OPS_PER_STRADDLE = 4
+CROSS_OPS_PER_CROSSING = 1
 ANGLE_OPS_PER_CROSSING = 6
+# device time of a kernel alone: readings of back-to-back launches of its
+# C entry, queued behind a sleep of about 2 ms (at the H100's 1.98 GHz)
+# so that the host's enqueue does not pace them
+DEVICE_READINGS = 21
+SLEEP_CYCLES = 4_000_000
 # repeats of the plain all-pairs versions at the exact path's size (each
 # call takes about a second)
 EXACT_PLAIN_REPEATS = 3
@@ -346,6 +365,71 @@ def boundary_fixture(dev):
     return [torch.from_numpy(a).to(dev) for a in (x, y, ok)]
 
 
+def masked_slabs(dev):
+    """Slabs whose valid slots are no prefix, or whose extents differ from
+    row to row (the kernel finds each row's extent on the device): the
+    last slot alone or with the first, interior gaps, one-slot rows
+    between all-invalid ones, short and full rows mixed at cap 256, and
+    rows of 2,500 slots (three staging windows of the kernel)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(11)
+
+    def gaps(rows, cap):
+        ok = np.zeros((rows, cap), bool)
+        for r in range(rows):
+            n = int(rng.integers(2, cap + 1))
+            ok[r, :n] = rng.random(n) < 0.5
+        return ok
+
+    last = np.zeros((6, 300), bool)
+    last[0::3, -1] = True
+    last[1::3, [0, -1]] = True
+    last[2::3] = True
+    one = np.zeros((8, 150), bool)
+    one[0::4] = True
+    for r in range(2, 8, 4):
+        one[r, int(rng.integers(0, 150))] = True
+    lengths = [0, 1, 2, 31, 32, 33, 127, 128, 129, 200, 255, 256]
+    mixed = np.arange(256)[None, :] < np.array(lengths * 2)[:, None]
+    slabs = {}
+    for label, ok in (("last slot", last), ("interior gaps", gaps(5, 200)),
+                      ("one-slot rows", one), ("mixed cap 256", mixed),
+                      ("cap 2500 windows", gaps(2, 2500))):
+        shape = ok.shape
+        yl = np.round(rng.uniform(0, 20, shape)).astype(np.float32)
+        yr = np.round(rng.uniform(0, 20, shape)).astype(np.float32)
+        th = rng.uniform(0, np.pi, shape).astype(np.float32)
+        v = rng.integers(0, 40, shape).astype(np.int32)
+        u = rng.integers(0, 40, shape).astype(np.int32)
+        slabs[label] = [torch.from_numpy(a).to(dev)
+                        for a in (yl, yr, th, v, u, ok)]
+    return slabs
+
+
+def occlusion_tile_cases(dev):
+    """Dense points (many occluding pairs) laid out against the kernel's
+    tiles: an all-invalid tile between valid ones, one valid vertex in
+    the last tile (on top of vertex 0), and n of exactly one tile."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.occlusion_pairs import TILE
+    rng = np.random.default_rng(12)
+    cases = {}
+    for label in ("middle tile invalid", "last tile single", "one tile"):
+        n = TILE if label == "one tile" else 3 * TILE
+        x = rng.uniform(0, 12, n).astype(np.float32)
+        y = rng.uniform(0, 12, n).astype(np.float32)
+        ok = np.ones(n, bool)
+        if label == "middle tile invalid":
+            ok[TILE:2 * TILE] = False
+        elif label == "last tile single":
+            ok[2 * TILE:-1] = False
+            x[-1], y[-1] = x[0], y[0]
+        cases[label] = [torch.from_numpy(a).to(dev) for a in (x, y, ok)]
+    return cases
+
+
 def compare_reversal(label, args, ideal):
     import torch
     from repro_torch.kernels.strip_reversal import (
@@ -363,34 +447,51 @@ def compare_reversal(label, args, ideal):
     return err
 
 
+def distinct_ids(shape, dev):
+    """Vertex ids under which no two slots share an endpoint: v = slot,
+    u = -1 - slot.  The plain versions count geometric reversals and
+    straddling pairs with them."""
+    import torch
+    idx = torch.arange(shape[-1], dtype=torch.int32, device=dev)
+    idx = idx.expand(shape).contiguous()
+    return idx, -1 - idx
+
+
+def bound(nbytes, ops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes > t_ops else "operations"
+
+
 def reversal_bound_ms(args):
     """The least time for one slab: input bytes read once and outputs
-    written once over HBM, or the unordered pairs between each row's
-    valid slots (and the deviation work on crossing pairs) over the FP32
-    issue rate."""
+    written once over HBM, or the operations these inputs need over the
+    FP32 issue rate: the unordered pairs between each row's valid slots,
+    the endpoint test on reversing pairs and the count and deviation on
+    crossings."""
     from repro_torch.kernels.strip_reversal import strip_reversal_rows_plain
     import torch
-    yl, ok = args[0], args[5]
+    yl, yr, th, v, u, ok = args
     rows, cap = yl.shape
     n_valid = ok.sum(dim=1, dtype=torch.float64)
+    pairs = float((n_valid * (n_valid - 1) / 2).sum())
+    reversals = float(strip_reversal_rows_plain(
+        yl, yr, th, *distinct_ids(yl.shape, yl.device), ok, ideal=1.0,
+        with_angle=False)[0].sum())
     crossings = float(strip_reversal_rows_plain(
         *args, ideal=1.0, with_angle=False)[0].sum())
-    pairs = float((n_valid * (n_valid - 1) / 2).sum())
-    ops = REV_OPS_PER_UNORDERED_PAIR * pairs + REV_OPS_PER_CROSSING * crossings
-    nbytes = rows * cap * (5 * 4 + 1) + rows * (8 + 4)
-    return max(nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S) * 1e3, \
-        "bytes" if nbytes / HBM_BYTES_PER_S > ops / ALU_OPS_PER_S \
-        else "operations"
+    ops = (REV_OPS_PER_UNORDERED_PAIR * pairs
+           + REV_OPS_PER_REVERSAL * reversals
+           + REV_OPS_PER_CROSSING * crossings)
+    return bound(rows * cap * (5 * 4 + 1) + rows * (8 + 4), ops)
 
 
-def occlusion_bound_ms(x, ok):
+def occlusion_bound_ms(x, ok, occluded):
     n = x.shape[0]
     nv = float(ok.sum())
-    ops = OCC_OPS_PER_PAIR * nv * (nv - 1) / 2
-    nbytes = n * 9 + 8
-    return max(nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S) * 1e3, \
-        "bytes" if nbytes / HBM_BYTES_PER_S > ops / ALU_OPS_PER_S \
-        else "operations"
+    ops = (OCC_OPS_PER_PAIR * nv * (nv - 1) / 2
+           + OCC_OPS_PER_OCCLUSION * occluded)
+    return bound(n * 9 + 8, ops)
 
 
 def exact_inputs():
@@ -438,20 +539,118 @@ def compare_crossing(label, args, ideal):
     return abs(got - want), dev_err, want
 
 
-def crossing_bound_ms(n, n_valid, crossings, angle):
+def crossing_bound_ms(n, n_valid, straddles, crossings, angle):
     """The least time for one crossing sweep: the edge arrays read once
-    and the scalar outputs written once over HBM, or the operations on
-    the unordered pairs of valid edges (and the deviation on crossing
-    pairs) over the FP32 issue rate."""
+    and the scalar outputs written once over HBM, or the operations these
+    inputs need over the FP32 issue rate: the straddle tests on the
+    unordered pairs of valid edges, the endpoint test on straddling pairs
+    and the count (and deviation) on crossings."""
     pairs = n_valid * (n_valid - 1) / 2
-    ops = CROSS_OPS_PER_UNORDERED_PAIR * pairs
+    ops = (CROSS_OPS_PER_UNORDERED_PAIR * pairs
+           + CROSS_OPS_PER_STRADDLE * straddles
+           + CROSS_OPS_PER_CROSSING * crossings)
     nbytes = n * (4 * 4 + 2 * 4 + 1) + 8
     if angle:
         ops += ANGLE_OPS_PER_CROSSING * crossings
         nbytes += n * 4 + 8
-    return max(nbytes / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S) * 1e3, \
-        "bytes" if nbytes / HBM_BYTES_PER_S > ops / ALU_OPS_PER_S \
-        else "operations"
+    return bound(nbytes, ops)
+
+
+def raw_launcher(name, args, *, ideal=1.0, radius=None):
+    """A call of kernel ``name``'s C entry on ``args`` (the wrapper's
+    arguments) into outputs allocated once: the kernel alone, without the
+    wrapper's checks, allocations and sums, and not counted in the
+    wrapper's launches.  ``launch.result()`` reduces the outputs as the
+    wrapper does, so that :func:`time_kernel` can hold what was timed
+    against the wrapper's result."""
+    import torch
+    from repro_torch.kernels._build import entry
+    fn = entry(name)
+    dev = args[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n = args[0].shape[0]
+    if name == "strip_reversal":
+        rows, cap = args[0].shape
+        outs = (torch.empty(rows, dtype=torch.int64, device=dev),
+                torch.empty(rows, dtype=torch.float32, device=dev))
+        tail = (rows, cap, float(ideal), 1)
+    elif name == "occlusion_pairs":
+        from repro_torch.kernels.occlusion_pairs import TILE, _threshold
+        n_t = n // TILE
+        outs = (torch.empty(n_t * (n_t + 1) // 2, dtype=torch.int32,
+                            device=dev),)
+        tail = (n, float(_threshold(radius, torch.empty(0))))
+    else:
+        from repro_torch.kernels.crossing_angle_sum import _ideal_and_recip
+        from repro_torch.kernels.segment_crossing import TILE
+        n_t = n // TILE
+        outs = tuple(torch.empty((n_t, n_t), dtype=dt, device=dev)
+                     for dt in (torch.int32, torch.float32))
+        if name == "segment_crossing":
+            args = args[:4] + args[5:]            # no theta
+            outs = outs[:1]
+            tail = (n,)
+        else:
+            tail = (n, *(float(t) for t in _ideal_and_recip(ideal)))
+    ptrs = [a.data_ptr() for a in args] + list(tail) + [
+        o.data_ptr() for o in outs] + [stream]
+
+    def launch():
+        err = fn(*ptrs)
+        if err != 0:
+            raise CheckFailed(f"{name} launch failed: cudaError {err}")
+
+    def result():
+        if name == "strip_reversal":
+            return outs
+        if name == "crossing_angle_sum":
+            return (outs[0].sum(dtype=torch.int64),
+                    outs[1].sum(dtype=torch.float64))
+        return outs[0].sum(dtype=torch.int64)
+    launch.result = result
+    return launch
+
+
+def check_same_result(label, got, want):
+    """The outputs of a :func:`raw_launcher` against the wrapper's result
+    on the same arguments: integers equal, floats at rtol :data:`RTOL`."""
+    import torch
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    check(len(got) == len(want), f"{label}: {len(got)} outputs timed, the "
+                                 f"wrapper returns {len(want)}")
+    for g, w in zip(got, want):
+        if w.dtype.is_floating_point:
+            same = (g.shape == w.shape and torch.allclose(
+                g.double(), w.double(), rtol=RTOL, atol=0.0))
+        else:
+            same = g.dtype == w.dtype and torch.equal(g, w)
+        check(same, f"{label}: the timed launches of the C entry differ "
+                    f"from the wrapper's result (sums "
+                    f"{float(g.double().sum())!r} and "
+                    f"{float(w.double().sum())!r})")
+
+
+def device_ms(launch, launches):
+    """Device time of one launch of ``launch`` (a :func:`raw_launcher`):
+    CUDA events around ``launches`` back-to-back launches queued behind a
+    sleep, over :data:`DEVICE_READINGS` readings.  Returns (median, min,
+    max) per launch."""
+    import torch
+    launch()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(DEVICE_READINGS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(launches):
+            launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times), min(times), max(times)
 
 
 class recording_launches:
@@ -570,8 +769,11 @@ def main() -> int:
     occ_ok[:n_v] = True
     for path, items in slabs.items():
         for label, args in items:
+            per_row = args[5].sum(dim=1, dtype=torch.float64)
             print(f"shape ({path}) strip_reversal {label}: "
-                  f"{tuple(args[0].shape)}", flush=True)
+                  f"{tuple(args[0].shape)}, valid slots per row: mean "
+                  f"{float(per_row.mean()):.1f}, max {int(per_row.max())}",
+                  flush=True)
     print(f"shape (c) occlusion_pairs: ({n_pad},)", flush=True)
 
     # the exact path's inputs and kernel shapes
@@ -599,6 +801,8 @@ def main() -> int:
                                                     args, ideal))
     rev_err = max(rev_err, compare_reversal("adversarial",
                                             adversarial_slab(dev), ideal))
+    for label, args in masked_slabs(dev).items():
+        rev_err = max(rev_err, compare_reversal(label, args, ideal))
     got = occlusion_pairs(occ_x, occ_y, occ_ok, RADIUS)
     torch.cuda.synchronize()
     want = occlusion_pairs_plain(occ_x, occ_y, occ_ok, RADIUS)
@@ -619,6 +823,12 @@ def main() -> int:
           f"occlusion_pairs {got_x} != plain {want_x} at n={x_pad}")
     occ_err = float(max(abs(int(got) - int(want)), abs(got_b - want_b),
                         abs(got_x - want_x)))
+    for label, case in occlusion_tile_cases(dev).items():
+        got_t = int(occlusion_pairs(*case, RADIUS))
+        torch.cuda.synchronize()
+        want_t = int(occlusion_pairs_plain(*case, RADIUS))
+        check(got_t == want_t and want_t > 0,
+              f"occlusion_pairs {got_t} != plain {want_t} on {label}")
     cross_err, angle_err = 0.0, 0.0
     for name, make in FIXTURES.items():
         c_err, d_err, _ = compare_crossing(name, edge_arrays(*make(), dev),
@@ -743,99 +953,113 @@ def main() -> int:
         print(f"time ({k}) {label}: {path_ms[k]:.3f} ms "
               f"(median of {REPEATS}, CUDA events) on {card}", flush=True)
 
-    rev = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_by={})
+    def time_kernel(name, label, shape, launch, launches, wrapper, plain,
+                    bound_and_by, plain_repeats=REPEATS):
+        """Time one kernel at one shape: the kernel alone on the device
+        (its outputs then held against the wrapper's result), its wrapper
+        (inner launches), its plain version; print them with the bound.
+        Returns a dict of those numbers."""
+        med, lo, hi = device_ms(launch, launches)
+        check_same_result(f"{name} {label} {shape}", launch.result(),
+                          wrapper())
+        w_ms = cuda_ms(wrapper, inner=launches)
+        p_ms = cuda_ms(plain, repeats=plain_repeats)
+        b_ms, by = bound_and_by
+        print(f"time {name} {label} {shape}: device {med:.5f} ms (min "
+              f"{lo:.5f}, max {hi:.5f}; {DEVICE_READINGS} readings of "
+              f"{launches} launches), wrapper {w_ms:.5f} ms, plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({by}) on {card}",
+              flush=True)
+        return dict(ms=med, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=b_ms,
+                    bound_by=by)
+
+    def total(rows_):
+        """Sum the per-shape numbers of one kernel over one pass."""
+        by = {}
+        for r in rows_:
+            by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
+        out = {k: sum(r[k] for r in rows_)
+               for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms")}
+        out["bound_by"] = max(by, key=by.get)
+        return out
+
+    rev_rows = []
     for path, items in slabs.items():
         for label, args in items:
-            k_ms = cuda_ms(lambda: strip_reversal_rows(*args, ideal=ideal),
-                           inner=10)
-            p_ms = cuda_ms(lambda: strip_reversal_rows_plain(
-                *args, ideal=ideal))
-            b_ms, by = reversal_bound_ms(args)
-            rev["ms"] += k_ms
-            rev["plain_ms"] += p_ms
-            rev["bound_ms"] += b_ms
-            rev["bound_by"][by] = rev["bound_by"].get(by, 0.0) + b_ms
-            print(f"time strip_reversal ({path}) {label} "
-                  f"{tuple(args[0].shape)}: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({by}) on {card}",
-                  flush=True)
-    occ_ms = cuda_ms(lambda: occlusion_pairs(occ_x, occ_y, occ_ok, RADIUS),
-                     inner=3)
-    occ_plain = cuda_ms(lambda: occlusion_pairs_plain(occ_x, occ_y, occ_ok,
-                                                      RADIUS))
-    occ_bound, occ_by = occlusion_bound_ms(occ_x, occ_ok)
-    print(f"time occlusion_pairs (c) ({n_pad},): kernel {occ_ms:.4f} ms, "
-          f"plain {occ_plain:.4f} ms, bound {occ_bound:.5f} ms ({occ_by}) "
-          f"on {card}", flush=True)
-    xocc_ms = cuda_ms(lambda: occlusion_pairs(xocc_x, xocc_y, xocc_ok,
-                                              EXACT_RADIUS), inner=10)
-    xocc_plain = cuda_ms(lambda: occlusion_pairs_plain(
-        xocc_x, xocc_y, xocc_ok, EXACT_RADIUS))
-    xocc_bound, xocc_by = occlusion_bound_ms(xocc_x, xocc_ok)
-    print(f"time occlusion_pairs (d) ({x_pad},): kernel {xocc_ms:.4f} ms, "
-          f"plain {xocc_plain:.4f} ms, bound {xocc_bound:.5f} ms "
-          f"({xocc_by}) on {card}", flush=True)
-    # (c) launches it once, (d) twice
-    occ_ms += 2 * xocc_ms
-    occ_plain += 2 * xocc_plain
-    occ_bound += 2 * xocc_bound
+            rev_rows.append(time_kernel(
+                "strip_reversal", f"({path}) {label}", tuple(args[0].shape),
+                raw_launcher("strip_reversal", args, ideal=ideal), 20,
+                lambda: strip_reversal_rows(*args, ideal=ideal),
+                lambda: strip_reversal_rows_plain(*args, ideal=ideal),
+                reversal_bound_ms(args)))
+    rev = total(rev_rows)
+    # (c) launches occlusion_pairs once, (d) twice
+    occ_rows = [time_kernel(
+        "occlusion_pairs", "(c)", (n_pad,),
+        raw_launcher("occlusion_pairs", [occ_x, occ_y, occ_ok],
+                     radius=RADIUS), 3,
+        lambda: occlusion_pairs(occ_x, occ_y, occ_ok, RADIUS),
+        lambda: occlusion_pairs_plain(occ_x, occ_y, occ_ok, RADIUS),
+        occlusion_bound_ms(occ_x, occ_ok, int(want)))]
+    occ_rows += [time_kernel(
+        "occlusion_pairs", "(d)", (x_pad,),
+        raw_launcher("occlusion_pairs", [xocc_x, xocc_y, xocc_ok],
+                     radius=EXACT_RADIUS), 20,
+        lambda: occlusion_pairs(xocc_x, xocc_y, xocc_ok, EXACT_RADIUS),
+        lambda: occlusion_pairs_plain(xocc_x, xocc_y, xocc_ok,
+                                      EXACT_RADIUS),
+        occlusion_bound_ms(xocc_x, xocc_ok, want_x))] * 2
+    occ = total(occ_rows)
 
     x1, y1, x2, y2, th, v, u, ok = xargs
     n_valid = float(ok.sum())
-    cross_ms = cuda_ms(lambda: crossing_count(x1, y1, x2, y2, v, u, ok),
-                       inner=3)
-    cross_plain = cuda_ms(lambda: crossing_count_plain(x1, y1, x2, y2, v, u,
-                                                       ok),
-                          repeats=EXACT_PLAIN_REPEATS)
-    cross_bound, cross_by = crossing_bound_ms(e_pad, n_valid, crossings,
-                                              angle=False)
-    print(f"time segment_crossing (d) ({e_pad},): kernel {cross_ms:.4f} ms, "
-          f"plain {cross_plain:.4f} ms (median of {EXACT_PLAIN_REPEATS}), "
-          f"bound {cross_bound:.5f} ms ({cross_by}) on {card}", flush=True)
-    angle_ms = cuda_ms(lambda: crossing_angle_stats(
-        *xargs, ideal=xcfg.ideal_angle), inner=3)
-    angle_plain = cuda_ms(lambda: crossing_angle_plain(
-        *xargs, ideal=xcfg.ideal_angle), repeats=EXACT_PLAIN_REPEATS)
-    angle_bound, angle_by = crossing_bound_ms(e_pad, n_valid, crossings,
-                                              angle=True)
-    print(f"time crossing_angle_sum (d) ({e_pad},): kernel {angle_ms:.4f} "
-          f"ms, plain {angle_plain:.4f} ms (median of "
-          f"{EXACT_PLAIN_REPEATS}), bound {angle_bound:.5f} ms "
-          f"({angle_by}) on {card}", flush=True)
+    straddles = int(crossing_count_plain(x1, y1, x2, y2,
+                                         *distinct_ids(v.shape, dev), ok))
+    torch.cuda.synchronize()
+    print(f"(d) straddling pairs (shared endpoints included): {straddles}, "
+          f"crossings {crossings}", flush=True)
+    cross = total([time_kernel(
+        "segment_crossing", "(d)", (e_pad,),
+        raw_launcher("segment_crossing", list(xargs)), 2,
+        lambda: crossing_count(x1, y1, x2, y2, v, u, ok),
+        lambda: crossing_count_plain(x1, y1, x2, y2, v, u, ok),
+        crossing_bound_ms(e_pad, n_valid, straddles, crossings, angle=False),
+        plain_repeats=EXACT_PLAIN_REPEATS)] * cross_launches)
+    angle = total([time_kernel(
+        "crossing_angle_sum", "(d)", (e_pad,),
+        raw_launcher("crossing_angle_sum", list(xargs),
+                     ideal=xcfg.ideal_angle), 2,
+        lambda: crossing_angle_stats(*xargs, ideal=xcfg.ideal_angle),
+        lambda: crossing_angle_plain(*xargs, ideal=xcfg.ideal_angle),
+        crossing_bound_ms(e_pad, n_valid, straddles, crossings, angle=True),
+        plain_repeats=EXACT_PLAIN_REPEATS)] * angle_launches)
 
     kernels = [
         dict(name="strip_reversal", route="cuda",
              source="src/repro_torch/kernels/csrc/strip_reversal.cu",
              replaces="src/repro/kernels/strip_reversal.py:25",
-             launches=rev_launches, max_abs_err=rev_err, ms=rev["ms"],
-             plain_ms=rev["plain_ms"], bound_ms=rev["bound_ms"],
-             bound_by=max(rev["bound_by"], key=rev["bound_by"].get),
+             launches=rev_launches, max_abs_err=rev_err, **rev,
              library_ms=None),
         dict(name="occlusion_pairs", route="cuda",
              source="src/repro_torch/kernels/csrc/occlusion_pairs.cu",
              replaces="src/repro/kernels/occlusion_pairs.py:30",
-             launches=occ_launches, max_abs_err=occ_err, ms=occ_ms,
-             plain_ms=occ_plain, bound_ms=occ_bound, bound_by=occ_by,
+             launches=occ_launches, max_abs_err=occ_err, **occ,
              library_ms=None),
         dict(name="segment_crossing", route="cuda",
              source="src/repro_torch/kernels/csrc/segment_crossing.cu",
              replaces="src/repro/kernels/segment_crossing.py:39",
-             launches=cross_launches, max_abs_err=cross_err,
-             ms=cross_launches * cross_ms,
-             plain_ms=cross_launches * cross_plain,
-             bound_ms=cross_launches * cross_bound, bound_by=cross_by,
+             launches=cross_launches, max_abs_err=cross_err, **cross,
              library_ms=None),
         dict(name="crossing_angle_sum", route="cuda",
              source="src/repro_torch/kernels/csrc/crossing_angle_sum.cu",
              replaces="src/repro/kernels/crossing_angle_sum.py:27",
-             launches=angle_launches, max_abs_err=angle_err,
-             ms=angle_launches * angle_ms,
-             plain_ms=angle_launches * angle_plain,
-             bound_ms=angle_launches * angle_bound, bound_by=angle_by,
+             launches=angle_launches, max_abs_err=angle_err, **angle,
              library_ms=None),
     ]
     print("kernel times are summed over every launch of one pass of "
-          "(a)-(d); launches are counted in that pass", flush=True)
+          "(a)-(d); launches are counted in that pass; ms is the kernel "
+          "alone on the device (median), wrapper_ms the wrapper's call",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

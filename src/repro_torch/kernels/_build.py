@@ -33,8 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 ENTRY_POINTS = {
     "strip_reversal": ("strip_reversal_launch", [_P] * 6 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int] + [_P] * 3),
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int] +
+        [_P] * 3),
     "occlusion_pairs": ("occlusion_pairs_launch", [_P] * 3 + [
         ctypes.c_int, ctypes.c_float] + [_P] * 2),
     "segment_crossing": ("segment_crossing_launch", [_P] * 7 + [

@@ -13,12 +13,15 @@ partial per ``(TILE, TILE)`` tile of the pair matrix, summed afterwards.
   other device raises.
 
 What bounds the kernel on an H100: per-pair ALU instructions on the CUDA
-cores (two subtracts, two multiplies, one add, the compares); the input
-is 9 bytes per vertex.  Its design: one block per tile, tiles wholly
-below the diagonal skipped, the j tile in shared memory, two i's per
-thread in registers, ``d2`` rounded product by product with
-``__fmul_rn``/``__fadd_rn`` so that no FMA flips a pair sitting exactly
-at the threshold.
+cores (two subtracts, two multiplies, one add, the compare, the
+predicated count); the input is 9 bytes per vertex.  Its design
+(``csrc/occlusion_pairs.cu``): a 1-D grid of the tiles on or above the
+diagonal only, a tile with no valid vertex on either side returns 0 at
+once, invalid vertices loaded as NaN so that no pair needs a mask, the
+``i < j`` order tested on diagonal tiles only, the j tile as ``float2``
+in shared memory against eight i's per thread in registers, and ``d2``
+rounded product by product with ``__fmul_rn``/``__fadd_rn`` so that no
+FMA flips a pair sitting exactly at the threshold.
 """
 
 from __future__ import annotations
@@ -79,7 +82,9 @@ def _launch(x, y, valid, radius):
         return torch.zeros((), dtype=torch.int64, device=dev)
     if n_tiles > 65535:
         raise ValueError(f"n={n} exceeds the kernel's tile grid")
-    partial = torch.empty((n_tiles, n_tiles), dtype=torch.int32, device=dev)
+    # one partial per tile on or above the diagonal
+    partial = torch.empty(n_tiles * (n_tiles + 1) // 2, dtype=torch.int32,
+                          device=dev)
     fn = entry("occlusion_pairs")
     thresh = float(_threshold(radius, torch.empty(0)))
     with torch.cuda.device(dev):

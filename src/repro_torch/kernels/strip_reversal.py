@@ -16,14 +16,19 @@ with ``with_angle`` the same pair mask sums ``|ideal - a_c| / ideal``.
   the plain formula in row blocks.  It raises on any other device.
 
 What bounds the function on an H100: per-pair ALU instructions on the
-CUDA cores (float compares, four int compares, one add; the deviation
-only on masked pairs); the input bytes are negligible.  Its design
-(``csrc/strip_reversal.cu``): grid ``(rows, ceil(cap / 256))``, one i
-per thread in registers, j-tiles staged through shared memory,
-fixed-order block reductions to per-(row, chunk) partials that the
-wrapper sums -- no atomics, so the deviation sum is reproducible.  This
-design is held back before the ALU by five shared-memory loads per pair
-and by sweeping each row's padding slots (see the note in the source).
+CUDA cores (four float compares and a join decide a reversal in either
+order; the function needs the shared-endpoint test only on reversing
+pairs and the count and deviation only on crossings); the input bytes
+are negligible.  Its design (``csrc/strip_reversal.cu``): each row swept
+only up to its extent (last valid slot + 1, found on the device),
+unordered pairs ``i < j`` tested in both orientations, the row staged
+once in shared memory with invalid slots as NaN (no per-pair mask), two
+i's per lane against 32-slot j tiles with the triangle split evenly over
+the warps, the endpoint test, count and deviation under a branch on
+reversal, short rows packed several to a block and 1024-slot windows
+for long rows; fixed-order reductions to one int64 count and one f32
+deviation per row -- no atomics on the sums, so the deviation sum is
+reproducible.
 """
 
 from __future__ import annotations
@@ -34,7 +39,6 @@ import torch
 
 # elements of the (rows, cap, cap) pair tiles one plain block may hold
 _PAIR_BUDGET = 1 << 26
-_MAX_THREADS = 256
 
 
 def fused_reversal_block(yl, yr, theta, v, u, valid, *, ideal,
@@ -116,27 +120,20 @@ def _launch(yl, yr, theta, v, u, valid, ideal, with_angle):
                 torch.zeros(rows, dtype=torch.float32, device=dev))
     if rows >= 2 ** 31:
         raise ValueError(f"too many rows for one launch: {rows}")
-    threads = min(_MAX_THREADS, -(-cap // 32) * 32)
-    chunks = -(-cap // threads)
-    cnt = torch.empty((rows, chunks), dtype=torch.int32, device=dev)
-    dsum = torch.empty((rows, chunks), dtype=torch.float32, device=dev)
+    cnt = torch.empty(rows, dtype=torch.int64, device=dev)
+    dsum = torch.empty(rows, dtype=torch.float32, device=dev)
     fn = entry("strip_reversal")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(yl.data_ptr(), yr.data_ptr(), theta.data_ptr(),
                  v.data_ptr(), u.data_ptr(), valid.data_ptr(), rows, cap,
-                 float(ideal), int(bool(with_angle)), threads, chunks,
+                 float(ideal), int(bool(with_angle)),
                  cnt.data_ptr(), dsum.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"strip_reversal kernel launch failed: "
                            f"cudaError {err}")
     strip_reversal_rows.LAUNCHES += 1
-    if chunks == 1:
-        return cnt[:, 0].to(torch.int64), dsum[:, 0]
-    # the chunk partials are summed in float64: a wide tier row gathers
-    # up to cap^2 terms
-    return (cnt.sum(dim=1, dtype=torch.int64),
-            dsum.sum(dim=1, dtype=torch.float64).to(torch.float32))
+    return cnt, dsum
 
 
 def strip_reversal_rows(yl, yr, theta, v, u, valid, *, ideal,

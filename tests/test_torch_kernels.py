@@ -19,6 +19,11 @@ the card (``gpu`` marker; skipped without a CUDA device).
   near-collinear layout is decided by that rounding, are therefore held
   to the oracles, which run op by op.
 
+The slabs include validity masks whose valid slots are no prefix
+(:func:`mask_pattern`) and the occlusion cases lay valid vertices out
+against the kernel's tiles (:func:`occlusion_case`): the redesigned
+kernels find each row's extent and skip empty tiles on the device.
+
 Tolerance: integer counts are equal; deviation sums agree at rtol 1e-5
 (float32 sums in a different order).  The reference is imported inside a
 fixture, so the card tests also run where JAX is not installed:
@@ -63,9 +68,39 @@ def cuda():
     return torch.device("cuda")
 
 
+def mask_pattern(name, rows, cap, rng):
+    """Validity masks whose valid slots do not form a prefix, or whose
+    extents differ from row to row (the strip-reversal kernel finds each
+    row's extent on the device)."""
+    ok = np.zeros((rows, cap), bool)
+    if name == "last_only":         # only the last slot, or first + last
+        ok[0::3, -1] = True
+        ok[1::3, [0, -1]] = True
+        ok[2::3] = True
+    elif name == "interior_gaps":   # a prefix of random length, holed
+        for r in range(rows):
+            n = int(rng.integers(2, cap + 1))
+            ok[r, :n] = rng.random(n) < 0.5
+    elif name == "one_slot_rows":   # full, empty, one slot, empty, ...
+        for r in range(rows):
+            kind = r % 4
+            if kind == 0:
+                ok[r] = True
+            elif kind == 2:
+                ok[r, int(rng.integers(0, cap))] = True
+    elif name == "mixed_lengths":   # short and full rows in one slab
+        lengths = [0, 1, 2, 31, 32, 33, 127, 128, 129, 200, 255, 256]
+        for r in range(rows):
+            ok[r, :min(cap, lengths[r % len(lengths)])] = True
+    else:
+        raise ValueError(name)
+    return ok
+
+
 def slab(rows, cap, seed, *, ties=False, shared=False, invalid_rows=(),
-         p_valid=0.85):
-    """A ``(rows, cap)`` slab of strip buckets as numpy arrays."""
+         p_valid=0.85, mask=None):
+    """A ``(rows, cap)`` slab of strip buckets as numpy arrays (``mask``
+    names a :func:`mask_pattern`; the default scatters invalid slots)."""
     rng = np.random.default_rng(seed)
     yl = rng.uniform(0, 10, (rows, cap)).astype(np.float32)
     yr = rng.uniform(0, 10, (rows, cap)).astype(np.float32)
@@ -76,7 +111,8 @@ def slab(rows, cap, seed, *, ties=False, shared=False, invalid_rows=(),
     hi = 6 if shared else 10 * cap
     v = rng.integers(0, hi, (rows, cap)).astype(np.int32)
     u = rng.integers(0, hi, (rows, cap)).astype(np.int32)
-    ok = rng.random((rows, cap)) < p_valid
+    ok = (rng.random((rows, cap)) < p_valid if mask is None
+          else mask_pattern(mask, rows, cap, rng))
     for r in invalid_rows:
         ok[r] = False
     return yl, yr, th, v, u, ok
@@ -90,6 +126,18 @@ SLABS = {
     "one_row": dict(rows=1, cap=97, seed=4),
     "cap300_ties_shared": dict(rows=3, cap=300, seed=5, ties=True,
                                shared=True),
+    "last_only": dict(rows=6, cap=300, seed=6, ties=True, mask="last_only"),
+    "interior_gaps": dict(rows=5, cap=200, seed=7, mask="interior_gaps"),
+    "one_slot_rows": dict(rows=8, cap=150, seed=8, ties=True,
+                          mask="one_slot_rows"),
+    "mixed_cap256": dict(rows=24, cap=256, seed=9, shared=True,
+                         mask="mixed_lengths"),
+}
+# rows longer than one 1024-slot staging window of the kernel
+WIDE_SLABS = {
+    "cap1100_wide": dict(rows=3, cap=1100, seed=9, ties=True),
+    "cap2500_windows": dict(rows=2, cap=2500, seed=10, ties=True,
+                            mask="interior_gaps"),
 }
 
 
@@ -97,10 +145,10 @@ def _torch(arrays, device="cpu"):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
 
-@pytest.mark.parametrize("name", sorted(SLABS))
+@pytest.mark.parametrize("name", sorted(SLABS) + sorted(WIDE_SLABS))
 @pytest.mark.parametrize("with_angle", [True, False])
 def test_plain_reversal_matches_reference(ref, name, with_angle):
-    arrays = slab(**SLABS[name])
+    arrays = slab(**{**SLABS, **WIDE_SLABS}[name])
     cnt, dev = t_rev.strip_reversal_rows_plain(
         *_torch(arrays), ideal=DEFAULT_IDEAL, with_angle=with_angle)
     jarr = [ref.jnp.asarray(a) for a in arrays]
@@ -170,6 +218,42 @@ def test_plain_occlusion_matches_reference(ref, seed):
     want = ref.ops.occlusion_count_op(ref.jnp.asarray(pos), 1.0,
                                       valid=ref.jnp.asarray(valid))
     assert int(got) == int(want)
+
+
+def occlusion_case(name, radius):
+    """``(x, y, ok)`` padded to the kernel's tile: dense points (many
+    occluding pairs) with the validity laid out to hit the kernel's tile
+    skipping and diagonal handling."""
+    t = t_occ.TILE
+    rng = np.random.default_rng(len(name))
+    n = t if name == "one_tile" else 3 * t
+    pos = rng.uniform(0, 12, (n, 2)).astype(np.float32)
+    ok = np.ones(n, bool)
+    if name == "one_tile":          # n of exactly one tile, with ties
+        pts = boundary_points(radius)
+        pos[:len(pts)] = pts
+    elif name == "middle_tile_invalid":
+        ok[t:2 * t] = False
+    elif name == "last_tile_single":
+        ok[2 * t:] = False
+        ok[-1] = True               # one valid vertex, on top of vertex 0
+        pos[-1] = pos[0]
+    else:
+        raise ValueError(name)
+    return pos, ok
+
+
+OCCLUSION_CASES = ["last_tile_single", "middle_tile_invalid", "one_tile"]
+
+
+@pytest.mark.parametrize("name", OCCLUSION_CASES)
+def test_plain_occlusion_matches_reference_on_tile_cases(ref, name):
+    pos, ok = occlusion_case(name, 0.5)
+    got = t_occ.occlusion_pairs_plain(
+        *_torch([pos[:, 0].copy(), pos[:, 1].copy(), ok]), 0.5)
+    want = ref.ops.occlusion_count_op(ref.jnp.asarray(pos), 0.5,
+                                      valid=ref.jnp.asarray(ok))
+    assert int(got) == int(want) > 0
 
 
 def test_occlusion_wrapper_takes_plain_route_on_cpu_only():
@@ -326,10 +410,10 @@ def test_edge_arrays_pad_to_the_tile():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", sorted(SLABS) + ["cap1100_wide"])
+@pytest.mark.parametrize("name", sorted(SLABS) + sorted(WIDE_SLABS))
 @pytest.mark.parametrize("with_angle", [True, False])
 def test_reversal_kernel_matches_plain_on_card(cuda, name, with_angle):
-    spec = SLABS.get(name, dict(rows=3, cap=1100, seed=9, ties=True))
+    spec = {**SLABS, **WIDE_SLABS}[name]
     arrays = _torch(slab(**spec), cuda)
     before = t_rev.strip_reversal_rows.LAUNCHES
     cnt, dev = t_rev.strip_reversal_rows(*arrays, ideal=DEFAULT_IDEAL,
@@ -360,6 +444,18 @@ def test_occlusion_kernel_matches_plain_on_card(cuda, radius):
     got = t_occ.occlusion_pairs(*args, radius)
     torch.cuda.synchronize()
     assert int(got) == int(t_occ.occlusion_pairs_plain(*args, radius))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", OCCLUSION_CASES)
+def test_occlusion_kernel_matches_plain_on_tile_cases(cuda, name):
+    pos, ok = occlusion_case(name, 0.5)
+    args = _torch([pos[:, 0].copy(), pos[:, 1].copy(), ok], cuda)
+    before = t_occ.occlusion_pairs.LAUNCHES
+    got = t_occ.occlusion_pairs(*args, 0.5)
+    torch.cuda.synchronize()
+    assert t_occ.occlusion_pairs.LAUNCHES == before + 1
+    assert int(got) == int(t_occ.occlusion_pairs_plain(*args, 0.5)) > 0
 
 
 CROSSING_CASES = sorted(FIXTURES) + ["random4096"]
