@@ -20,7 +20,7 @@ Phases (any failed check raises):
    padded size, at the exact path's, on exact ``d2 == (2r)^2`` pairs and
    on the tile layouts of :func:`occlusion_tile_cases`; the
    segment-crossing and crossing-angle
-   kernels on the adversarial layouts of
+   kernels on the adversarial layouts and the tile layouts of
    ``repro_torch.kernels.fixtures`` and at the exact path's size.
    Integers equal, deviation sums at rtol 1e-5.
 3. **Main path at full size**: the layout-local graph at |V| = 100,000
@@ -250,6 +250,25 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def resource_usage(name, log):
+    """Registers, shared memory and spills of ``csrc/<name>.cu``'s
+    kernels: from ptxas's lines in ``log`` (its build in this process),
+    else as ``cuobjdump -res-usage`` reads them from the built library
+    (LOCAL is the spill space)."""
+    import re
+    lines = [line.split(":", 1)[-1].strip() for line in log.splitlines()
+             if "registers" in line or "spill" in line]
+    if lines:
+        return "; ".join(lines)
+    from repro_torch.kernels._build import library_path, nvcc_path
+    out = subprocess.run(
+        [str(Path(nvcc_path()).parent / "cuobjdump"), "-res-usage",
+         str(library_path(name))], capture_output=True, text=True,
+        timeout=60).stdout
+    found = re.findall(r"REG:\d+ STACK:\d+ SHARED:\d+ LOCAL:\d+", out)
+    return "; ".join(found) + " (cuobjdump)" if found else "not reported"
+
+
 def cuda_ms(fn, repeats=REPEATS, inner=1):
     """Median over ``repeats`` of the CUDA-event time of ``inner`` calls of
     ``fn``, per call, after one warm-up call."""
@@ -351,13 +370,9 @@ def boundary_fixture(dev):
     one nudged inside and one coincident pair, padded to one tile."""
     import numpy as np
     import torch
+    from repro_torch.kernels.fixtures import boundary_points
     from repro_torch.kernels.occlusion_pairs import TILE
-    d = np.float32(2 * RADIUS)
-    pts = np.array([(0, 0), (d, 0), (0, d), (-d, 0),
-                    (10, 10), (10 + 0.6 * d, 10 + 0.8 * d),
-                    (0, 20), (np.nextafter(d, 0), 20),
-                    (0, 30), (np.nextafter(d, 99), 30),
-                    (40, 40), (40, 40)], np.float32)
+    pts = boundary_points(RADIUS)
     x = np.zeros(TILE, np.float32)
     y = np.zeros(TILE, np.float32)
     ok = np.zeros(TILE, bool)
@@ -366,67 +381,32 @@ def boundary_fixture(dev):
 
 
 def masked_slabs(dev):
-    """Slabs whose valid slots are no prefix, or whose extents differ from
-    row to row (the kernel finds each row's extent on the device): the
-    last slot alone or with the first, interior gaps, one-slot rows
-    between all-invalid ones, short and full rows mixed at cap 256, and
-    rows of 2,500 slots (three staging windows of the kernel)."""
-    import numpy as np
+    """The strip slabs of ``repro_torch.kernels.fixtures`` whose valid
+    slots are no prefix, or whose extents differ from row to row (the
+    kernel finds each row's extent on the device): the last slot alone or
+    with the first, interior gaps, one-slot rows between all-invalid
+    ones, short and full rows mixed at cap 256, and rows of 2,500 slots
+    (three staging windows of the kernel)."""
     import torch
-    rng = np.random.default_rng(11)
-
-    def gaps(rows, cap):
-        ok = np.zeros((rows, cap), bool)
-        for r in range(rows):
-            n = int(rng.integers(2, cap + 1))
-            ok[r, :n] = rng.random(n) < 0.5
-        return ok
-
-    last = np.zeros((6, 300), bool)
-    last[0::3, -1] = True
-    last[1::3, [0, -1]] = True
-    last[2::3] = True
-    one = np.zeros((8, 150), bool)
-    one[0::4] = True
-    for r in range(2, 8, 4):
-        one[r, int(rng.integers(0, 150))] = True
-    lengths = [0, 1, 2, 31, 32, 33, 127, 128, 129, 200, 255, 256]
-    mixed = np.arange(256)[None, :] < np.array(lengths * 2)[:, None]
-    slabs = {}
-    for label, ok in (("last slot", last), ("interior gaps", gaps(5, 200)),
-                      ("one-slot rows", one), ("mixed cap 256", mixed),
-                      ("cap 2500 windows", gaps(2, 2500))):
-        shape = ok.shape
-        yl = np.round(rng.uniform(0, 20, shape)).astype(np.float32)
-        yr = np.round(rng.uniform(0, 20, shape)).astype(np.float32)
-        th = rng.uniform(0, np.pi, shape).astype(np.float32)
-        v = rng.integers(0, 40, shape).astype(np.int32)
-        u = rng.integers(0, 40, shape).astype(np.int32)
-        slabs[label] = [torch.from_numpy(a).to(dev)
-                        for a in (yl, yr, th, v, u, ok)]
-    return slabs
+    from repro_torch.kernels.fixtures import (STRIP_SLABS, WIDE_STRIP_SLABS,
+                                              strip_slab)
+    return {name: [torch.from_numpy(a).to(dev) for a in strip_slab(**spec)]
+            for name, spec in {**STRIP_SLABS, **WIDE_STRIP_SLABS}.items()
+            if "mask" in spec}
 
 
 def occlusion_tile_cases(dev):
-    """Dense points (many occluding pairs) laid out against the kernel's
-    tiles: an all-invalid tile between valid ones, one valid vertex in
-    the last tile (on top of vertex 0), and n of exactly one tile."""
-    import numpy as np
+    """The occlusion layouts of ``repro_torch.kernels.fixtures``: dense
+    points (many occluding pairs) laid out against the kernel's tiles: an
+    all-invalid tile between valid ones, one valid vertex in the last
+    tile (on top of vertex 0), and n of exactly one tile."""
     import torch
-    from repro_torch.kernels.occlusion_pairs import TILE
-    rng = np.random.default_rng(12)
+    from repro_torch.kernels.fixtures import OCCLUSION_CASES, occlusion_case
     cases = {}
-    for label in ("middle tile invalid", "last tile single", "one tile"):
-        n = TILE if label == "one tile" else 3 * TILE
-        x = rng.uniform(0, 12, n).astype(np.float32)
-        y = rng.uniform(0, 12, n).astype(np.float32)
-        ok = np.ones(n, bool)
-        if label == "middle tile invalid":
-            ok[TILE:2 * TILE] = False
-        elif label == "last tile single":
-            ok[2 * TILE:-1] = False
-            x[-1], y[-1] = x[0], y[0]
-        cases[label] = [torch.from_numpy(a).to(dev) for a in (x, y, ok)]
+    for name in OCCLUSION_CASES:
+        pos, ok = occlusion_case(name, RADIUS)
+        cases[name] = [torch.from_numpy(a).to(dev)
+                       for a in (pos[:, 0].copy(), pos[:, 1].copy(), ok)]
     return cases
 
 
@@ -556,16 +536,19 @@ def crossing_bound_ms(n, n_valid, straddles, crossings, angle):
     return bound(nbytes, ops)
 
 
-def raw_launcher(name, args, *, ideal=1.0, radius=None):
-    """A call of kernel ``name``'s C entry on ``args`` (the wrapper's
-    arguments) into outputs allocated once: the kernel alone, without the
-    wrapper's checks, allocations and sums, and not counted in the
-    wrapper's launches.  ``launch.result()`` reduces the outputs as the
-    wrapper does, so that :func:`time_kernel` can hold what was timed
-    against the wrapper's result."""
+def raw_launcher(name, args, *, ideal=1.0, radius=None, fn=None):
+    """A call of kernel ``name``'s C entry (or of ``fn``, a variant's entry
+    of the same signature) on ``args`` (the wrapper's arguments) into
+    outputs allocated once: the kernel alone, without the wrapper's
+    checks, allocations and sums, and not counted in the wrapper's
+    launches.  ``launch.result()`` reduces the outputs as the wrapper
+    does, so that :func:`time_kernel` can hold what was timed against the
+    wrapper's result.  The crossing kernels' outputs are zeroed and hold
+    a partial for every tile of the square grid, so that a variant that
+    writes the tiles below the diagonal fits too."""
     import torch
     from repro_torch.kernels._build import entry
-    fn = entry(name)
+    fn = fn or entry(name)
     dev = args[0].device
     stream = torch.cuda.current_stream(dev).cuda_stream
     n = args[0].shape[0]
@@ -583,8 +566,7 @@ def raw_launcher(name, args, *, ideal=1.0, radius=None):
     else:
         from repro_torch.kernels.crossing_angle_sum import _ideal_and_recip
         from repro_torch.kernels.segment_crossing import TILE
-        n_t = n // TILE
-        outs = tuple(torch.empty((n_t, n_t), dtype=dt, device=dev)
+        outs = tuple(torch.zeros((n // TILE) ** 2, dtype=dt, device=dev)
                      for dt in (torch.int32, torch.float32))
         if name == "segment_crossing":
             args = args[:4] + args[5:]            # no theta
@@ -718,7 +700,7 @@ def main() -> int:
     from repro_torch.kernels import strip_reversal as strip_reversal_mod
     from repro_torch.kernels.crossing_angle_sum import (
         crossing_angle_plain, crossing_angle_stats)
-    from repro_torch.kernels.fixtures import FIXTURES
+    from repro_torch.kernels.fixtures import FIXTURES, TILE_LAYOUTS
     from repro_torch.kernels.occlusion_pairs import (
         TILE, occlusion_pairs, occlusion_pairs_plain)
     from repro_torch.kernels.segment_crossing import (crossing_count,
@@ -738,10 +720,10 @@ def main() -> int:
     report = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s for "
           f"{', '.join(report)}", flush=True)
-    for name, (seconds, log) in report.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    ptxas = {name: resource_usage(name, log)
+             for name, (seconds, log) in report.items()}
+    for name, usage in ptxas.items():
+        print(f"  ptxas {name}: {usage}")
 
     # -- inputs and the main path's kernel shapes --------------------------
     pos, edges, batch = inputs()
@@ -830,7 +812,7 @@ def main() -> int:
         check(got_t == want_t and want_t > 0,
               f"occlusion_pairs {got_t} != plain {want_t} on {label}")
     cross_err, angle_err = 0.0, 0.0
-    for name, make in FIXTURES.items():
+    for name, make in {**FIXTURES, **TILE_LAYOUTS}.items():
         c_err, d_err, _ = compare_crossing(name, edge_arrays(*make(), dev),
                                            xcfg.ideal_angle)
         cross_err, angle_err = max(cross_err, c_err), max(angle_err, d_err)
@@ -954,7 +936,7 @@ def main() -> int:
               f"(median of {REPEATS}, CUDA events) on {card}", flush=True)
 
     def time_kernel(name, label, shape, launch, launches, wrapper, plain,
-                    bound_and_by, plain_repeats=REPEATS):
+                    bound_and_by, plain_repeats=REPEATS, note=""):
         """Time one kernel at one shape: the kernel alone on the device
         (its outputs then held against the wrapper's result), its wrapper
         (inner launches), its plain version; print them with the bound.
@@ -968,7 +950,7 @@ def main() -> int:
         print(f"time {name} {label} {shape}: device {med:.5f} ms (min "
               f"{lo:.5f}, max {hi:.5f}; {DEVICE_READINGS} readings of "
               f"{launches} launches), wrapper {w_ms:.5f} ms, plain "
-              f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({by}) on {card}",
+              f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({by}) on {card}{note}",
               flush=True)
         return dict(ms=med, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=b_ms,
                     bound_by=by)
@@ -1032,7 +1014,8 @@ def main() -> int:
         lambda: crossing_angle_stats(*xargs, ideal=xcfg.ideal_angle),
         lambda: crossing_angle_plain(*xargs, ideal=xcfg.ideal_angle),
         crossing_bound_ms(e_pad, n_valid, straddles, crossings, angle=True),
-        plain_repeats=EXACT_PLAIN_REPEATS)] * angle_launches)
+        plain_repeats=EXACT_PLAIN_REPEATS,
+        note=f"; ptxas {ptxas['crossing_angle_sum']}")] * angle_launches)
 
     kernels = [
         dict(name="strip_reversal", route="cuda",

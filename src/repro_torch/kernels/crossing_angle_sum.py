@@ -5,11 +5,11 @@ Replaces the Pallas TPU kernel ``repro/kernels/crossing_angle_sum.py``
 (``_angle_kernel`` / ``crossing_angle_stats``): over the crossing pairs
 of :mod:`repro_torch.kernels.segment_crossing`, the count and the sum of
 ``|ideal - a_c| / ideal``, with ``a_c`` the acute angle between the two
-segments, as one partial pair per ``(TILE, TILE)`` tile, summed
-afterwards in int64 / float64.  Each deviation multiplies by the float32
-rounding of ``1 / ideal``, as the Pallas kernel does; the reference's
-exact jnp sweep divides by ``ideal`` instead, which differs by at most an
-ulp per deviation.
+segments, as one partial pair per ``(TILE, TILE)`` tile on or above the
+diagonal, summed afterwards in int64 / float64.  Deviations multiply by
+the float32 rounding of ``1 / ideal``, as the Pallas kernel does; the
+reference's exact jnp sweep divides by ``ideal`` instead, which differs
+by at most an ulp per deviation.
 
 * :func:`crossing_angle_plain` -- the plain PyTorch version, blocked
   all-pairs, one rounding per op.
@@ -19,8 +19,14 @@ ulp per deviation.
   any other device raises.
 
 What bounds the kernel on an H100, and its design: as for the crossing
-count (``csrc/segment_pairs.cuh``), plus about six operations per
-crossing pair for the deviation; theta is staged beside the j tile.
+count (``csrc/segment_pairs.cuh``), plus the deviation, formed on every
+pair (a warp meets a crossing on nearly every j, so a branch around it
+would be taken anyway) and added under the crossing predicate: three
+adds, with ``a_c = pi/2 - |pi/2 - d|``, and a predicated add per pair.
+Theta is staged beside the j tile; each thread sums ``|ideal - a_c|``
+and multiplies by ``1 / ideal`` once before the block reduction.  Both
+forms move the sum by ulps against the plain version's, far inside the
+rtol 1e-5 parity bar.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ import torch
 
 from repro_torch.core.geometry import line_crossing_angle
 from repro_torch.kernels.segment_crossing import (TILE, check_edge_arrays,
-                                                  crossing_mask, row_blocks)
+                                                  crossing_mask, row_blocks,
+                                                  tile_partials)
 
 
 def _ideal_and_recip(ideal):
@@ -76,8 +83,9 @@ def _launch(x1, y1, x2, y2, theta, v, u, valid, ideal):
     if n_tiles == 0:
         return (torch.zeros((), dtype=torch.int64, device=dev),
                 torch.zeros((), dtype=torch.float64, device=dev))
-    cnt = torch.empty((n_tiles, n_tiles), dtype=torch.int32, device=dev)
-    dsum = torch.empty((n_tiles, n_tiles), dtype=torch.float32, device=dev)
+    n_parts = tile_partials(n_tiles)
+    cnt = torch.empty(n_parts, dtype=torch.int32, device=dev)
+    dsum = torch.empty(n_parts, dtype=torch.float32, device=dev)
     ideal32, recip32 = _ideal_and_recip(ideal)
     fn = entry("crossing_angle_sum")
     with torch.cuda.device(dev):

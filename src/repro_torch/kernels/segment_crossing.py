@@ -3,8 +3,8 @@
 Replaces the Pallas TPU kernel ``repro/kernels/segment_crossing.py``
 (``_crossing_kernel`` / ``_cross_tile`` / ``crossing_count``): count the
 edge pairs with global ``i < j``, both valid, no shared endpoint, and the
-CCW straddle test, as one partial per ``(TILE, TILE)`` tile of the pair
-matrix, summed afterwards.
+CCW straddle test, as one partial per ``(TILE, TILE)`` tile on or above
+the diagonal of the pair matrix, summed afterwards.
 
 * :func:`crossing_count_plain` -- the plain PyTorch version, blocked
   all-pairs, one rounding per op.
@@ -14,13 +14,15 @@ matrix, summed afterwards.
   other device raises.
 
 What bounds the kernel on an H100: per-pair ALU work on the CUDA cores
-(about 30 operations: the cross products rounded op by op, the straddle
-tests, the shared-endpoint compares); the input is 25 bytes per edge.
-Its design (``csrc/segment_pairs.cuh``, shared with the crossing-angle
-kernel): one block per tile, tiles wholly below the diagonal skipped,
-the j tile in shared memory, two i segments per thread in registers,
-products and differences through ``__fmul_rn`` / ``__fsub_rn`` so no FMA
-flips a collinear pair, fixed-order reductions, no atomics.
+(about 31 issued instructions: the cross products rounded op by op, the
+straddle tests, the shared-endpoint compares, the count); the input is
+25 bytes per edge.  Its design (``csrc/segment_pairs.cuh``, shared with
+the crossing-angle kernel): a 1-D grid of the tiles on or above the
+diagonal, tiles without a valid edge returning at once, the j tile in
+shared memory, several i segments per thread in registers, the order
+test on the diagonal tiles only, products and differences through
+``__fmul_rn`` / ``__fsub_rn`` so no FMA flips a collinear pair,
+fixed-order reductions, no atomics.
 """
 
 from __future__ import annotations
@@ -69,6 +71,12 @@ def crossing_count_plain(x1, y1, x2, y2, v, u, valid, *,
     return total
 
 
+def tile_partials(n_tiles):
+    """Number of per-tile partials the crossing kernels write: one per
+    tile ``(bi, bj)`` with ``bi <= bj``."""
+    return n_tiles * (n_tiles + 1) // 2
+
+
 def check_edge_arrays(n, tile, named):
     """Raise unless every ``(name, tensor, dtype)`` is ``(n,)``, of its
     dtype, contiguous and on one device, and ``n`` is a multiple of the
@@ -95,7 +103,8 @@ def _launch(x1, y1, x2, y2, v, u, valid):
     n_tiles = n // TILE
     if n_tiles == 0:
         return torch.zeros((), dtype=torch.int64, device=dev)
-    partial = torch.empty((n_tiles, n_tiles), dtype=torch.int32, device=dev)
+    partial = torch.empty(tile_partials(n_tiles), dtype=torch.int32,
+                          device=dev)
     fn = entry("segment_crossing")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

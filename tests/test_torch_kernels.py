@@ -19,10 +19,14 @@ the card (``gpu`` marker; skipped without a CUDA device).
   near-collinear layout is decided by that rounding, are therefore held
   to the oracles, which run op by op.
 
-The slabs include validity masks whose valid slots are no prefix
-(:func:`mask_pattern`) and the occlusion cases lay valid vertices out
-against the kernel's tiles (:func:`occlusion_case`): the redesigned
-kernels find each row's extent and skip empty tiles on the device.
+The inputs come from :mod:`repro_torch.kernels.fixtures`, which
+``chip_smoke.py`` shares.  The slabs include validity masks whose valid
+slots are no prefix (``mask_pattern``), the occlusion cases lay valid
+vertices out against the kernel's tiles (``occlusion_case``), and the
+crossing layouts of ``TILE_LAYOUTS`` put valid edges in chosen tiles,
+confine crossings to the rows of one warp, or give segments angles near
+0 and pi: the kernels find each row's extent, skip empty tiles and test
+the order on the diagonal tiles only, on the device.
 
 Tolerance: integer counts are equal; deviation sums agree at rtol 1e-5
 (float32 sums in a different order).  The reference is imported inside a
@@ -31,6 +35,7 @@ fixture, so the card tests also run where JAX is not installed:
 """
 
 import ctypes
+import math
 import re
 import types
 
@@ -45,9 +50,15 @@ from repro_torch.kernels import occlusion_pairs as t_occ
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import segment_crossing as t_cross
 from repro_torch.kernels import strip_reversal as t_rev
-from repro_torch.kernels.fixtures import FIXTURES, random_segments
+from repro_torch.kernels.fixtures import (FIXTURES, OCCLUSION_CASES,
+                                          STRIP_SLABS, TILE_LAYOUTS,
+                                          WIDE_STRIP_SLABS, boundary_points,
+                                          occlusion_case, random_segments,
+                                          strip_slab)
 
 RTOL = 1e-5
+ALL_SLABS = {**STRIP_SLABS, **WIDE_STRIP_SLABS}
+SLAB_NAMES = sorted(STRIP_SLABS) + sorted(WIDE_STRIP_SLABS)
 
 
 @pytest.fixture(scope="module")
@@ -68,87 +79,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def mask_pattern(name, rows, cap, rng):
-    """Validity masks whose valid slots do not form a prefix, or whose
-    extents differ from row to row (the strip-reversal kernel finds each
-    row's extent on the device)."""
-    ok = np.zeros((rows, cap), bool)
-    if name == "last_only":         # only the last slot, or first + last
-        ok[0::3, -1] = True
-        ok[1::3, [0, -1]] = True
-        ok[2::3] = True
-    elif name == "interior_gaps":   # a prefix of random length, holed
-        for r in range(rows):
-            n = int(rng.integers(2, cap + 1))
-            ok[r, :n] = rng.random(n) < 0.5
-    elif name == "one_slot_rows":   # full, empty, one slot, empty, ...
-        for r in range(rows):
-            kind = r % 4
-            if kind == 0:
-                ok[r] = True
-            elif kind == 2:
-                ok[r, int(rng.integers(0, cap))] = True
-    elif name == "mixed_lengths":   # short and full rows in one slab
-        lengths = [0, 1, 2, 31, 32, 33, 127, 128, 129, 200, 255, 256]
-        for r in range(rows):
-            ok[r, :min(cap, lengths[r % len(lengths)])] = True
-    else:
-        raise ValueError(name)
-    return ok
-
-
-def slab(rows, cap, seed, *, ties=False, shared=False, invalid_rows=(),
-         p_valid=0.85, mask=None):
-    """A ``(rows, cap)`` slab of strip buckets as numpy arrays (``mask``
-    names a :func:`mask_pattern`; the default scatters invalid slots)."""
-    rng = np.random.default_rng(seed)
-    yl = rng.uniform(0, 10, (rows, cap)).astype(np.float32)
-    yr = rng.uniform(0, 10, (rows, cap)).astype(np.float32)
-    if ties:                        # quantized ordinates: many exact ties
-        yl = np.round(yl).astype(np.float32)
-        yr = np.round(yr).astype(np.float32)
-    th = rng.uniform(0, np.pi, (rows, cap)).astype(np.float32)
-    hi = 6 if shared else 10 * cap
-    v = rng.integers(0, hi, (rows, cap)).astype(np.int32)
-    u = rng.integers(0, hi, (rows, cap)).astype(np.int32)
-    ok = (rng.random((rows, cap)) < p_valid if mask is None
-          else mask_pattern(mask, rows, cap, rng))
-    for r in invalid_rows:
-        ok[r] = False
-    return yl, yr, th, v, u, ok
-
-
-SLABS = {
-    "cap45": dict(rows=7, cap=45, seed=0),
-    "cap200_ties": dict(rows=5, cap=200, seed=1, ties=True),
-    "cap128_shared": dict(rows=6, cap=128, seed=2, shared=True),
-    "invalid_rows": dict(rows=4, cap=33, seed=3, invalid_rows=(0, 2)),
-    "one_row": dict(rows=1, cap=97, seed=4),
-    "cap300_ties_shared": dict(rows=3, cap=300, seed=5, ties=True,
-                               shared=True),
-    "last_only": dict(rows=6, cap=300, seed=6, ties=True, mask="last_only"),
-    "interior_gaps": dict(rows=5, cap=200, seed=7, mask="interior_gaps"),
-    "one_slot_rows": dict(rows=8, cap=150, seed=8, ties=True,
-                          mask="one_slot_rows"),
-    "mixed_cap256": dict(rows=24, cap=256, seed=9, shared=True,
-                         mask="mixed_lengths"),
-}
-# rows longer than one 1024-slot staging window of the kernel
-WIDE_SLABS = {
-    "cap1100_wide": dict(rows=3, cap=1100, seed=9, ties=True),
-    "cap2500_windows": dict(rows=2, cap=2500, seed=10, ties=True,
-                            mask="interior_gaps"),
-}
-
-
 def _torch(arrays, device="cpu"):
     return [torch.from_numpy(a).to(device) for a in arrays]
 
 
-@pytest.mark.parametrize("name", sorted(SLABS) + sorted(WIDE_SLABS))
+@pytest.mark.parametrize("name", SLAB_NAMES)
 @pytest.mark.parametrize("with_angle", [True, False])
 def test_plain_reversal_matches_reference(ref, name, with_angle):
-    arrays = slab(**{**SLABS, **WIDE_SLABS}[name])
+    arrays = strip_slab(**ALL_SLABS[name])
     cnt, dev = t_rev.strip_reversal_rows_plain(
         *_torch(arrays), ideal=DEFAULT_IDEAL, with_angle=with_angle)
     jarr = [ref.jnp.asarray(a) for a in arrays]
@@ -166,7 +104,7 @@ def test_plain_reversal_matches_reference(ref, name, with_angle):
 
 
 def test_reversal_wrapper_takes_plain_route_on_cpu_only():
-    arrays = _torch(slab(**SLABS["cap45"]))
+    arrays = _torch(strip_slab(**STRIP_SLABS["cap45"]))
     before = t_rev.strip_reversal_rows.LAUNCHES
     got = t_rev.strip_reversal_rows(*arrays, ideal=1.0)
     want = t_rev.strip_reversal_rows_plain(*arrays, ideal=1.0)
@@ -175,19 +113,6 @@ def test_reversal_wrapper_takes_plain_route_on_cpu_only():
     meta = [a.to("meta") for a in arrays]
     with pytest.raises(ValueError, match="cuda or cpu"):
         t_rev.strip_reversal_rows(*meta, ideal=1.0)
-
-
-def boundary_points(radius):
-    """Points whose pairs sit exactly at, just inside and just outside
-    ``d2 == (2r)^2``: axis-aligned at distance 2r and 3-4-5 triangles
-    (every coordinate and product exact in float32)."""
-    d = 2.0 * radius
-    pts = [(0.0, 0.0), (d, 0.0), (0.0, d), (-d, 0.0),            # exactly 2r
-           (10.0, 10.0), (10.0 + 0.6 * d, 10.0 + 0.8 * d),          # 3-4-5
-           (0.0, 20.0), (np.nextafter(np.float32(d), 0), 20.0),     # inside
-           (0.0, 30.0), (np.nextafter(np.float32(d), 99), 30.0),    # outside
-           (40.0, 40.0), (40.0, 40.0)]                               # d = 0
-    return np.array(pts, np.float32)
 
 
 @pytest.mark.parametrize("radius", [2.5, 0.5])
@@ -218,32 +143,6 @@ def test_plain_occlusion_matches_reference(ref, seed):
     want = ref.ops.occlusion_count_op(ref.jnp.asarray(pos), 1.0,
                                       valid=ref.jnp.asarray(valid))
     assert int(got) == int(want)
-
-
-def occlusion_case(name, radius):
-    """``(x, y, ok)`` padded to the kernel's tile: dense points (many
-    occluding pairs) with the validity laid out to hit the kernel's tile
-    skipping and diagonal handling."""
-    t = t_occ.TILE
-    rng = np.random.default_rng(len(name))
-    n = t if name == "one_tile" else 3 * t
-    pos = rng.uniform(0, 12, (n, 2)).astype(np.float32)
-    ok = np.ones(n, bool)
-    if name == "one_tile":          # n of exactly one tile, with ties
-        pts = boundary_points(radius)
-        pos[:len(pts)] = pts
-    elif name == "middle_tile_invalid":
-        ok[t:2 * t] = False
-    elif name == "last_tile_single":
-        ok[2 * t:] = False
-        ok[-1] = True               # one valid vertex, on top of vertex 0
-        pos[-1] = pos[0]
-    else:
-        raise ValueError(name)
-    return pos, ok
-
-
-OCCLUSION_CASES = ["last_tile_single", "middle_tile_invalid", "one_tile"]
 
 
 @pytest.mark.parametrize("name", OCCLUSION_CASES)
@@ -331,6 +230,40 @@ def test_plain_crossing_kernels_match_oracles_on_fixtures(ref, name):
     np.testing.assert_allclose(float(a_dev), float(w_dev), rtol=RTOL)
 
 
+@pytest.mark.parametrize("name", sorted(TILE_LAYOUTS))
+def test_plain_crossing_angle_matches_oracles_on_tile_layouts(ref, name):
+    layout = TILE_LAYOUTS[name]()
+    args = edge_arrays(layout)
+    cnt, dev = t_ang.crossing_angle_plain(*args, ideal=DEFAULT_IDEAL)
+    rx1, ry1, rx2, ry2, rv, ru, rok = reference_edge_arrays(ref, layout)
+    w_cnt, w_dev = ref.oracles.crossing_angle_ref(
+        rx1, ry1, rx2, ry2, rv, ru, DEFAULT_IDEAL, rok)
+    assert int(cnt) == int(w_cnt) > 0
+    np.testing.assert_allclose(float(dev), float(w_dev), rtol=RTOL)
+
+
+def test_tile_layouts_hit_their_tiles_warps_and_angles():
+    """The layouts do what their names say: valid edges only in the named
+    tiles, crossings only between rows 32-63 of a tile, and crossing
+    pairs whose acute angle is ``pi - d``."""
+    tile = t_cross.TILE
+    for name in ("tiles2_last", "tiles3_alternate"):
+        _, edges, valid = TILE_LAYOUTS[name]()
+        tiles = set(np.flatnonzero(valid) // tile)
+        assert tiles == ({1} if name == "tiles2_last" else {0, 2})
+    x1, y1, x2, y2, th, v, u, ok = edge_arrays(TILE_LAYOUTS["warp_rows"]())
+    n = x1.shape[0]
+    rows = [i for i in range(n)
+            if t_cross.crossing_mask(x1, y1, x2, y2, v, u, ok, i, i + 1).any()]
+    assert rows and all(32 <= i % tile < 64 for i in rows)
+    x1, y1, x2, y2, th, v, u, ok = edge_arrays(
+        TILE_LAYOUTS["theta_near_0_and_pi"]())
+    mask = t_cross.crossing_mask(x1, y1, x2, y2, v, u, ok, 0, x1.shape[0])
+    d = (th[:, None] - th[None, :]).abs()
+    assert bool((mask & (math.pi - d < d)).any())
+    assert bool((th[ok] < 0.01).any() and (th[ok] > math.pi - 0.01).any())
+
+
 def contracted_crossing_count(layout):
     """The crossing count with each cross product contracted as an FMA
     (``a*b - c*d`` with ``a*b`` unrounded), emulated in float64."""
@@ -410,11 +343,11 @@ def test_edge_arrays_pad_to_the_tile():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", sorted(SLABS) + sorted(WIDE_SLABS))
+@pytest.mark.parametrize("name", SLAB_NAMES)
 @pytest.mark.parametrize("with_angle", [True, False])
 def test_reversal_kernel_matches_plain_on_card(cuda, name, with_angle):
-    spec = {**SLABS, **WIDE_SLABS}[name]
-    arrays = _torch(slab(**spec), cuda)
+    spec = ALL_SLABS[name]
+    arrays = _torch(strip_slab(**spec), cuda)
     before = t_rev.strip_reversal_rows.LAUNCHES
     cnt, dev = t_rev.strip_reversal_rows(*arrays, ideal=DEFAULT_IDEAL,
                                          with_angle=with_angle)
@@ -481,3 +414,43 @@ def test_crossing_kernels_match_plain_on_card(cuda, name):
     p_cnt, p_dev = t_ang.crossing_angle_plain(*args, ideal=DEFAULT_IDEAL)
     assert int(cnt) == int(p_cnt) == int(want)
     np.testing.assert_allclose(float(dev), float(p_dev), rtol=RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(TILE_LAYOUTS) + ["random16384"])
+def test_crossing_angle_kernel_matches_plain_on_tile_layouts(cuda, name):
+    layout = (random_segments(16384, seed=13) if name == "random16384"
+              else TILE_LAYOUTS[name]())
+    args = edge_arrays(layout, cuda)
+    cnt, dev = t_ang.crossing_angle_stats(*args, ideal=DEFAULT_IDEAL)
+    torch.cuda.synchronize()
+    p_cnt, p_dev = t_ang.crossing_angle_plain(*args, ideal=DEFAULT_IDEAL)
+    assert int(cnt) == int(p_cnt) > 0
+    np.testing.assert_allclose(float(dev), float(p_dev), rtol=RTOL)
+    x1, y1, x2, y2, th, v, u, ok = args
+    assert int(t_cross.crossing_count(x1, y1, x2, y2, v, u, ok)) == int(p_cnt)
+
+
+@pytest.mark.gpu
+def test_crossing_angle_kernel_is_bit_identical_across_launches(cuda):
+    """Fixed-order reductions and no float atomics: the deviation sum (and
+    every tile partial) is the same bit for bit from launch to launch."""
+    args = edge_arrays(random_segments(16384, seed=14), cuda)
+    first = t_ang.crossing_angle_stats(*args, ideal=DEFAULT_IDEAL)
+    second = t_ang.crossing_angle_stats(*args, ideal=DEFAULT_IDEAL)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert first[1].item().hex() == second[1].item().hex()
+
+
+@pytest.mark.gpu
+def test_crossing_angle_launches_counted_once_per_call(cuda):
+    args = edge_arrays(TILE_LAYOUTS["tiles3_alternate"](), cuda)
+    before = t_ang.crossing_angle_stats.LAUNCHES
+    for k in range(1, 4):
+        t_ang.crossing_angle_stats(*args, ideal=DEFAULT_IDEAL)
+        assert t_ang.crossing_angle_stats.LAUNCHES == before + k
+    t_ops.crossing_angle_op(*_torch(TILE_LAYOUTS["tiles1"]()[:2], cuda),
+                            ideal=DEFAULT_IDEAL)
+    torch.cuda.synchronize()
+    assert t_ang.crossing_angle_stats.LAUNCHES == before + 4
