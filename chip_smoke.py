@@ -39,12 +39,31 @@ Phases (any failed check raises):
    reference's op-by-op constants; each call must launch the
    segment-crossing, crossing-angle and occlusion-pair kernels once
    each, on the shapes checked and timed here.
+   (e) the serving front and the standalone enhanced algorithms:
+   (e1) ``ReadabilityServer(EvalConfig(radius=0.5, n_strips=512))``
+   serves (b)'s 8 layouts as 8 requests in one session dispatch of B=8 on
+   a flat plan (integers equal to (b)'s constants: padded == natural and
+   flat == tiered; a second round is a plan hit with no replan); (e2) the
+   same on ``backend="kernels"``; (e3) ``ReadabilityServer(method=
+   "exact")`` on (d)'s inputs (``EXACT_REFERENCE``); (e4) fault drills
+   with the port's ``FaultPlan`` on the |V| = 10,000 layout-local graph
+   of ``benchmarks/serve_bench.py`` (a failed B=8 dispatch split and
+   retried, a NaN request quarantined alone, a cancelled and two shed
+   requests, a hung chunk expired by the watchdog), each counter equal to
+   ``FaultPlan.injected`` and every other slot's integers equal to an
+   unfaulted run; (e5) ``count_crossings_enhanced``,
+   ``crossing_angle_enhanced`` and ``count_occlusions_enhanced`` at |V| =
+   100,000 against ``ENHANCED_REFERENCE``.  Outside the drills any error
+   slot or failure counter fails the run: split-and-retry would otherwise
+   hide a kernel that fails to launch.
 4. **Timings**: median of 5 CUDA-event-timed runs after a warm-up, for
-   (a)-(d); for each kernel at its shapes on those paths, its time alone
-   on the device (median, min and max of 21 readings of back-to-back
-   launches of its C entry, whose outputs are then held against the
-   wrapper's result), its wrapper's time, its plain version's and its
-   bound, counted from the operations these inputs need.
+   (a)-(e3) and (e5); for each kernel at each shape launched in one pass
+   of (a)-(e), its time alone on the device (median, min and max of 21
+   readings of back-to-back launches of its C entry, whose outputs are
+   then held against the wrapper's result), its wrapper's time, its plain
+   version's and its bound, counted from the operations these inputs
+   need, on the data phase 2 checked at that shape; a kernel's numbers
+   are summed over its launches in the pass.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card line
 from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
@@ -212,6 +231,13 @@ REFERENCE = {
         },
     ],
 }
+# phase (e4): the drills' graph, benchmarks/serve_bench.py's largest size
+# and strip count (make_graph(10000): seed 0, frac_long 0.02), B = 8 (member
+# 0 the layout, 1-7 jittered from numpy.random.default_rng(2)); a hung
+# chunk's members carry DRILL_DEADLINE and the server DRILL_TIMEOUT
+DRILL_N_V, DRILL_FRAC_LONG, DRILL_N_STRIPS = 10_000, 0.02, 128
+DRILL_DEADLINE, DRILL_TIMEOUT, DRILL_HANG_SECONDS = 1.0, 2.0, 10.0
+
 # JAX reference constants of repro.api.evaluate_exact(pos, edges,
 # config=EvalConfig(radius=0.5), use_kernels=False) on the exact path's
 # inputs, made on the CPU with
@@ -225,6 +251,26 @@ EXACT_REFERENCE = {
     "edge_crossing_angle": 0.7149947881698608,
     "crossing_count_for_angle": 900016170,
     "overflow": 0,
+}
+
+# JAX reference constants of phase (e5): repro.core's
+# count_crossings_enhanced / crossing_angle_enhanced (n_strips=512, "both")
+# and count_occlusions_enhanced (radius 0.5) on the |V| = 100,000 layout,
+# made on the CPU with
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --serve
+# (op by op).  The same run served (b)'s batch through the reference's
+# ReadabilityServer as (e1) does and found its integers equal to
+# REFERENCE["batch"], which (e1) and (e2) are held to; (e3) is (d0)'s call
+# and is held to EXACT_REFERENCE.
+ENHANCED_REFERENCE = {
+    "count_crossings_enhanced": {"count": 34534, "overflow": 0},
+    "crossing_angle_enhanced": {
+        "edge_crossing_angle": 0.7175037860870361,
+        "count": 34534,
+        "dev_sum": 9755.7255859375,
+        "overflow": 0,
+    },
+    "count_occlusions_enhanced": {"count": 1538901, "overflow": 0},
 }
 
 INT_FIELDS = ("node_occlusion", "edge_crossing", "crossing_count_for_angle",
@@ -677,6 +723,151 @@ def check_scores(label, got, want):
               f"{label}: {f} = {g!r}, reference {want[f]!r} (rtol {RTOL})")
 
 
+def padded_batch(batch, edges):
+    """The session's padded requests of a ``(B, V, 2)`` batch of one graph:
+    ``((B, V_pad, 2) positions, (E_pad, 2) edges)``."""
+    import numpy as np
+    return (np.stack([session_padding(p, edges)[0] for p in batch]),
+            session_padding(batch[0], edges)[1])
+
+
+FAILURE_COUNTERS = ("dispatch_failures", "quarantined", "chunk_splits",
+                    "degraded_dispatches", "watchdog_abandoned", "expired",
+                    "shed", "cancelled", "saturated")
+
+
+def check_clean(label, reports, stats):
+    """Outside the drills every slot evaluated and no failure counter
+    moved: the session's split-and-retry would otherwise turn a kernel
+    that fails to launch into quarantined slots of a run that passes."""
+    bad = [(i, r.error) for i, r in enumerate(reports) if not r.ok]
+    check(not bad, f"{label}: error slots {bad}")
+    moved = {k: stats[k] for k in FAILURE_COUNTERS if stats[k]}
+    check(not moved, f"{label}: failure counters moved: {moved}")
+
+
+def same_ints(label, got, want):
+    for f in INT_FIELDS:
+        check(getattr(got, f) == getattr(want, f),
+              f"{label}: {f} = {getattr(got, f)}, unfaulted run "
+              f"{getattr(want, f)}")
+
+
+def drill_inputs():
+    import numpy as np
+    from repro_torch.graphs.datasets import layout_local_graph
+    pos, edges = layout_local_graph(DRILL_N_V, seed=SEED,
+                                    frac_long=DRILL_FRAC_LONG)
+    rng = np.random.default_rng(2)
+    batch = np.stack([pos] + [
+        pos + rng.normal(0, JITTER, pos.shape).astype(np.float32)
+        for _ in range(BATCH - 1)]).astype(np.float32)
+    return pos, edges, batch
+
+
+def drill_clean(cfg, reqs):
+    """(e4)'s unfaulted run: one dispatch of B = 8, no failure counter."""
+    from repro_torch.launch.serve import ReadabilityServer
+    server = ReadabilityServer(cfg)
+    out = server.evaluate_batch(reqs)
+    check_clean("(e4) unfaulted", out, server.stats)
+    return out
+
+
+def run_drills(cfg, reqs, clean):
+    """(e4): each drill on a fresh server under the port's ``FaultPlan``;
+    the counter that certifies each fault equals what the plan injected,
+    every other failure counter stays 0, and every slot the fault does not
+    own equals the unfaulted run ``clean`` on integers.  Returns
+    ``{drill: (injected, counters)}``."""
+    from repro_torch.core.validate import (DeadlineExceededError,
+                                           InvalidInputError,
+                                           OverloadedError)
+    from repro_torch.launch.admission import CancelToken
+    from repro_torch.launch.faults import FaultPlan
+    from repro_torch.launch.serve import ReadabilityServer
+
+    def drill(name, owned, plan_kw, server_kw=None, **call):
+        server = ReadabilityServer(cfg, **(server_kw or {}))
+        t0 = time.perf_counter()
+        with FaultPlan(**plan_kw) as fp:
+            out = server.evaluate_batch(reqs, **call)
+        seconds = time.perf_counter() - t0
+        stats = server.stats
+        for i, r in enumerate(out):
+            if i not in owned:
+                check(r.ok, f"(e4) {name}: slot {i} failed: {r.error}")
+                same_ints(f"(e4) {name} slot {i}", r, clean[i])
+        counters = {k: stats[k] for k in FAILURE_COUNTERS}
+        print(f"(e4) {name}: {seconds:.3f} s, injected "
+              f"{ {k: v for k, v in fp.injected.items() if v} }, counters "
+              f"{ {k: v for k, v in counters.items() if v} }", flush=True)
+        return out, dict(fp.injected), counters
+
+    def only(counters, **want):
+        check(counters == {**{k: 0 for k in FAILURE_COUNTERS}, **want},
+              f"(e4) counters {counters}, want {want} and no others")
+
+    done = {}
+    # a failed coalesced dispatch: split, every member retried alone
+    out, inj, cnt = drill("fail_dispatches=[0]", (),
+                          dict(fail_dispatches=[0]))
+    check(inj["fail_dispatches"] == 1, f"(e4) injected {inj}")
+    only(cnt, dispatch_failures=inj["fail_dispatches"], chunk_splits=1)
+    done["fail"] = (inj, cnt)
+    # a poisoned request: quarantined to its own slot
+    out, inj, cnt = drill("nan_requests=[3]", (3,), dict(nan_requests=[3]))
+    check(isinstance(out[3].error, InvalidInputError)
+          and out[3].error.request_index == 3, f"(e4) slot 3: {out[3]}")
+    only(cnt, quarantined=inj["nan_requests"])
+    check(inj["nan_requests"] == 1, f"(e4) injected {inj}")
+    done["nan"] = (inj, cnt)
+    # a cancelled request and a queue bound of 6: three own slots fail
+    tokens = [CancelToken() for _ in reqs]
+    tokens[2].cancel()
+    out, inj, cnt = drill("cancel + max_queue=6", (2, 6, 7), {},
+                          dict(max_queue=BATCH - 2), cancel=tokens)
+    check(out[2].cancelled and out[6].shed and out[7].shed
+          and isinstance(out[6].error, OverloadedError),
+          f"(e4) cancel/shed slots: {out[2].error}, {out[6].error}, "
+          f"{out[7].error}")
+    check(not any(inj.values()), f"(e4) injected {inj}")
+    only(cnt, cancelled=1, shed=2)
+    done["cancel_shed"] = (inj, cnt)
+    # a hung chunk of 4 with a deadline: the watchdog abandons it, its
+    # members expire, the next chunk of 4 is served
+    t0 = time.perf_counter()
+    out, inj, cnt = drill(
+        "hang_dispatches=[0]", (0, 1, 2, 3),
+        dict(hang_dispatches=[0], hang_seconds=DRILL_HANG_SECONDS),
+        dict(max_coalesce=4, dispatch_timeout=DRILL_TIMEOUT),
+        deadline=[DRILL_DEADLINE] * 4 + [None] * 4)
+    check(time.perf_counter() - t0 < DRILL_HANG_SECONDS,
+          "(e4) the hang was not cut by the watchdog")
+    check(all(isinstance(out[i].error, DeadlineExceededError)
+              for i in range(4)), f"(e4) hung slots: {out[:4]}")
+    check(inj["hang_dispatches"] == 1, f"(e4) injected {inj}")
+    only(cnt, watchdog_abandoned=inj["hang_dispatches"], expired=4,
+         dispatch_failures=1, chunk_splits=1)
+    done["hang"] = (inj, cnt)
+    return done
+
+
+def occlusion_args(pos_p, n_valid, dev):
+    """The occlusion-pair kernel's padded x, y and valid arrays of a padded
+    layout, as ``ops.occlusion_count_op`` builds them."""
+    import torch
+    from repro_torch.kernels.occlusion_pairs import TILE
+    n_pad = -(-pos_p.shape[0] // TILE) * TILE
+    x = torch.zeros(n_pad, device=dev)
+    y = torch.zeros(n_pad, device=dev)
+    ok = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+    x[:pos_p.shape[0]] = torch.from_numpy(pos_p[:, 0].copy()).to(dev)
+    y[:pos_p.shape[0]] = torch.from_numpy(pos_p[:, 1].copy()).to(dev)
+    ok[:n_valid] = True
+    return x, y, ok
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -690,9 +881,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(src))
 
-    import numpy as np
+    import warnings
+    from collections import Counter
+
     from repro_torch.api import EvalConfig, Evaluator, evaluate_exact
-    from repro_torch.core import engine
+    from repro_torch.core import (count_crossings_enhanced,
+                                  count_occlusions_enhanced,
+                                  crossing_angle_enhanced, engine)
     from repro_torch.kernels import _build
     from repro_torch.kernels import crossing_angle_sum as crossing_angle_mod
     from repro_torch.kernels import occlusion_pairs as occlusion_pairs_mod
@@ -702,11 +897,12 @@ def main() -> int:
         crossing_angle_plain, crossing_angle_stats)
     from repro_torch.kernels.fixtures import FIXTURES, TILE_LAYOUTS
     from repro_torch.kernels.occlusion_pairs import (
-        TILE, occlusion_pairs, occlusion_pairs_plain)
+        occlusion_pairs, occlusion_pairs_plain)
     from repro_torch.kernels.segment_crossing import (crossing_count,
                                                       crossing_count_plain)
     from repro_torch.kernels.strip_reversal import (
         strip_reversal_rows, strip_reversal_rows_plain)
+    from repro_torch.launch.serve import ReadabilityServer
 
     dev = torch.device("cuda")
     card = card_line()
@@ -735,20 +931,30 @@ def main() -> int:
                                    **cfg.plan_kwargs(tier_default=False))
     tiered = engine.plan_readability(batch, edges, **cfg.plan_kwargs())
     pos_p, edges_p = session_padding(pos, edges)
+    batch_p, _ = padded_batch(batch, edges)
     ideal = flat.ideal
+    # phase (e4)'s graph, served on a flat plan from member 0 as the
+    # session plans it, in chunks of B = 8, 4, 2 and 1
+    dpos, dedges, dbatch = drill_inputs()
+    dcfg = EvalConfig(radius=RADIUS, n_strips=DRILL_N_STRIPS)
+    dplan = engine.plan_readability(dpos, dedges,
+                                    **dcfg.plan_kwargs(tier_default=False))
+    dbatch_p, dedges_p = padded_batch(dbatch, dedges)
+    print(f"drill graph: |V| = {dpos.shape[0]}, |E| = {dedges.shape[0]}, "
+          f"n_strips {DRILL_N_STRIPS}", flush=True)
     slabs = {
         "a": reversal_slabs(flat, pos_p[None], edges_p, n_e, dev),
         "b": reversal_slabs(tiered, batch, edges, n_e, dev),
         "c": reversal_slabs(flat, pos_p[None], edges_p, n_e, dev,
                             flat_buckets=True),
+        "e1": reversal_slabs(flat, batch_p, edges_p, n_e, dev),
+        "e2": [item for i in range(BATCH) for item in reversal_slabs(
+            flat, batch_p[i:i + 1], edges_p, n_e, dev, flat_buckets=True)],
+        "e4": [item for width in (8, 4, 2, 1) for item in reversal_slabs(
+            dplan, dbatch_p[:width], dedges_p, dedges.shape[0], dev)],
     }
-    n_pad = -(-pos_p.shape[0] // TILE) * TILE
-    occ_x = torch.zeros(n_pad, device=dev)
-    occ_y = torch.zeros(n_pad, device=dev)
-    occ_ok = torch.zeros(n_pad, dtype=torch.bool, device=dev)
-    occ_x[:pos_p.shape[0]] = torch.from_numpy(pos_p[:, 0]).to(dev)
-    occ_y[:pos_p.shape[0]] = torch.from_numpy(pos_p[:, 1]).to(dev)
-    occ_ok[:n_v] = True
+    occ_x, occ_y, occ_ok = occlusion_args(pos_p, n_v, dev)
+    n_pad = occ_x.shape[0]
     for path, items in slabs.items():
         for label, args in items:
             per_row = args[5].sum(dim=1, dtype=torch.float64)
@@ -756,7 +962,7 @@ def main() -> int:
                   f"{tuple(args[0].shape)}, valid slots per row: mean "
                   f"{float(per_row.mean()):.1f}, max {int(per_row.max())}",
                   flush=True)
-    print(f"shape (c) occlusion_pairs: ({n_pad},)", flush=True)
+    print(f"shape (c), (e2) occlusion_pairs: ({n_pad},)", flush=True)
 
     # the exact path's inputs and kernel shapes
     epos, eedges = exact_inputs()
@@ -765,22 +971,22 @@ def main() -> int:
           f"|E| = {eedges.shape[0]}", flush=True)
     xargs = edge_arrays(epos, eedges, None, dev)
     e_pad = xargs[0].shape[0]
-    x_pad = -(-epos.shape[0] // TILE) * TILE
-    xocc_x = torch.zeros(x_pad, device=dev)
-    xocc_y = torch.zeros(x_pad, device=dev)
-    xocc_ok = torch.zeros(x_pad, dtype=torch.bool, device=dev)
-    xocc_x[:epos.shape[0]] = torch.from_numpy(epos[:, 0]).to(dev)
-    xocc_y[:epos.shape[0]] = torch.from_numpy(epos[:, 1]).to(dev)
-    xocc_ok[:epos.shape[0]] = True
-    print(f"shape (d) segment_crossing: ({e_pad},); crossing_angle_sum: "
+    xocc_x, xocc_y, xocc_ok = occlusion_args(epos, epos.shape[0], dev)
+    x_pad = xocc_x.shape[0]
+    print(f"shape (d), (e3) segment_crossing: ({e_pad},); crossing_angle_sum: "
           f"({e_pad},); occlusion_pairs: ({x_pad},)", flush=True)
 
     # -- 2. kernel vs plain ------------------------------------------------
+    # each kernel's checked shapes, with the arguments first checked there
+    # (phase 4 times each launched shape on them)
+    rev_checked, occ_checked = {}, {}
     rev_err = 0.0
     for path, items in slabs.items():
         for label, args in items:
             rev_err = max(rev_err, compare_reversal(f"({path}) {label}",
                                                     args, ideal))
+            rev_checked.setdefault(tuple(args[0].shape),
+                                   (f"({path}) {label}", args))
     rev_err = max(rev_err, compare_reversal("adversarial",
                                             adversarial_slab(dev), ideal))
     for label, args in masked_slabs(dev).items():
@@ -790,6 +996,15 @@ def main() -> int:
     want = occlusion_pairs_plain(occ_x, occ_y, occ_ok, RADIUS)
     check(int(got) == int(want),
           f"occlusion_pairs {int(got)} != plain {int(want)} at n={n_pad}")
+    occ_checked[(n_pad,)] = ("(c)", (occ_x, occ_y, occ_ok), RADIUS,
+                             int(want))
+    # (e2) launches the same shape on the jittered members
+    e2_occ = occlusion_args(batch_p[BATCH - 1], n_v, dev)
+    got_e2 = int(occlusion_pairs(*e2_occ, RADIUS))
+    torch.cuda.synchronize()
+    want_e2 = int(occlusion_pairs_plain(*e2_occ, RADIUS))
+    check(got_e2 == want_e2, f"occlusion_pairs {got_e2} != plain {want_e2} "
+                             f"on (e2) member {BATCH - 1}")
     fx = boundary_fixture(dev)
     got_b = int(occlusion_pairs(*fx, RADIUS))
     torch.cuda.synchronize()
@@ -803,8 +1018,10 @@ def main() -> int:
                                        EXACT_RADIUS))
     check(got_x == want_x,
           f"occlusion_pairs {got_x} != plain {want_x} at n={x_pad}")
-    occ_err = float(max(abs(int(got) - int(want)), abs(got_b - want_b),
-                        abs(got_x - want_x)))
+    occ_checked[(x_pad,)] = ("(d)", (xocc_x, xocc_y, xocc_ok), EXACT_RADIUS,
+                             want_x)
+    occ_err = float(max(abs(int(got) - int(want)), abs(got_e2 - want_e2),
+                        abs(got_b - want_b), abs(got_x - want_x)))
     for label, case in occlusion_tile_cases(dev).items():
         got_t = int(occlusion_pairs(*case, RADIUS))
         torch.cuda.synchronize()
@@ -819,11 +1036,12 @@ def main() -> int:
     c_err, d_err, crossings = compare_crossing(f"(d) ({e_pad},)", xargs,
                                                xcfg.ideal_angle)
     cross_err, angle_err = max(cross_err, c_err), max(angle_err, d_err)
+    cross_checked = {(e_pad,): ("(d)", xargs)}
     print(f"kernel vs plain: ok (strip_reversal max abs dev err {rev_err}, "
-          f"occlusion_pairs {int(got)} and {got_x} pairs, max abs err "
-          f"{occ_err}; segment_crossing {crossings} crossings, max abs err "
-          f"{cross_err}; crossing_angle_sum max abs dev err {angle_err})",
-          flush=True)
+          f"occlusion_pairs {int(got)}, {got_e2} and {got_x} pairs, max abs "
+          f"err {occ_err}; segment_crossing {crossings} crossings, max abs "
+          f"err {cross_err}; crossing_angle_sum max abs dev err "
+          f"{angle_err})", flush=True)
 
     # -- 3. main path ------------------------------------------------------
     ev = Evaluator(cfg)
@@ -834,6 +1052,8 @@ def main() -> int:
                    segment_crossing_mod, crossing_angle_mod)
     counters = (strip_reversal_rows, occlusion_pairs, crossing_count,
                 crossing_angle_stats)
+    names = ("strip_reversal", "occlusion_pairs", "segment_crossing",
+             "crossing_angle_sum")
     for fn in counters:
         fn.LAUNCHES = 0
     runs = {}
@@ -849,20 +1069,20 @@ def main() -> int:
             launches[path] = (strip_reversal_rows.LAUNCHES - before[0],
                               occlusion_pairs.LAUNCHES - before[1])
             seen_shapes[path] = sorted(rec.seen[-1])
-    rev_launches = strip_reversal_rows.LAUNCHES
-    occ_launches = occlusion_pairs.LAUNCHES
+    total_launches = Counter({"strip_reversal": strip_reversal_rows.LAUNCHES,
+                              "occlusion_pairs": occlusion_pairs.LAUNCHES})
     print(f"launches per path (strip_reversal, occlusion_pairs): "
           f"{launches}", flush=True)
-    for path, shapes in seen_shapes.items():
+    for path in ("a", "b", "c"):
         planned = sorted([("strip_reversal", tuple(args[0].shape))
                           for _, args in slabs[path]]
                          + [("occlusion_pairs", (n_pad,))] * (path == "c"))
-        check(shapes == planned,
-              f"({path}) launched the kernels on {shapes}, the shapes "
-              f"checked and timed here are {planned}")
-    check(rev_launches > 0 and occ_launches > 0,
-          f"main path launched strip_reversal {rev_launches}x, "
-          f"occlusion_pairs {occ_launches}x")
+        check(seen_shapes[path] == planned,
+              f"({path}) launched the kernels on {seen_shapes[path]}, the "
+              f"shapes checked and timed here are {planned}")
+    check(total_launches["strip_reversal"] > 0
+          and total_launches["occlusion_pairs"] > 0,
+          f"main path launched {dict(total_launches)}")
     check(launches["a"] == (len(slabs["a"]), 0)
           and launches["b"] == (len(slabs["b"]), 0)
           and launches["c"] == (len(slabs["c"]), 1),
@@ -884,28 +1104,37 @@ def main() -> int:
     print("main path: ok, equal to the JAX reference constants "
           f"(ints exact, floats rtol {RTOL})", flush=True)
 
-    # (d) the exact path, both routes, each with the counts set to 0
-    # just before it and read just after
+    # (d) and (e): each run with the counts set to 0 just before it and
+    # read just after
+    sub_launches = {}
+
+    def run_counted(key, rec, call):
+        for fn in counters:
+            fn.LAUNCHES = 0
+        rec.step()
+        out = call()
+        sub_launches[key] = tuple(fn.LAUNCHES for fn in counters)
+        seen_shapes[key] = sorted(rec.seen[-1])
+        total_launches.update(dict(zip(names, sub_launches[key])))
+        return out
+
+    exact_planned = sorted([("crossing_angle_sum", (e_pad,)),
+                            ("occlusion_pairs", (x_pad,)),
+                            ("segment_crossing", (e_pad,))])
     xruns = {}
-    xlaunches = {}
     with recording_launches(*kernel_mods) as rec:
         for uk in (False, True):
-            for fn in counters:
-                fn.LAUNCHES = 0
-            rec.step()
-            xruns[uk] = evaluate_exact(epos, eedges, config=xcfg,
-                                       use_kernels=uk)
-            xlaunches[uk] = tuple(fn.LAUNCHES for fn in counters)
-            planned = sorted([("crossing_angle_sum", (e_pad,)),
-                              ("occlusion_pairs", (x_pad,)),
-                              ("segment_crossing", (e_pad,))])
-            check(sorted(rec.seen[-1]) == planned,
+            xruns[uk] = run_counted(f"d{int(uk)}", rec, lambda: evaluate_exact(
+                epos, eedges, config=xcfg, use_kernels=uk))
+            check(seen_shapes[f"d{int(uk)}"] == exact_planned,
                   f"(d) use_kernels={uk} launched the kernels on "
-                  f"{sorted(rec.seen[-1])}, the shapes checked and timed "
-                  f"here are {planned}")
+                  f"{seen_shapes[f'd{int(uk)}']}, the shapes checked and "
+                  f"timed here are {exact_planned}")
     print("launches in (d) (strip_reversal, occlusion_pairs, "
-          f"segment_crossing, crossing_angle_sum): {xlaunches}", flush=True)
-    for uk, got_launches in xlaunches.items():
+          f"segment_crossing, crossing_angle_sum): "
+          f"{[sub_launches['d0'], sub_launches['d1']]}", flush=True)
+    for uk in (False, True):
+        got_launches = sub_launches[f"d{int(uk)}"]
         check(got_launches == (0, 1, 1, 1),
               f"(d) use_kernels={uk} launched {got_launches}, want one "
               "launch of each exact-path kernel")
@@ -913,11 +1142,118 @@ def main() -> int:
         check_scores(f"(d) exact use_kernels={uk}", xruns[uk],
                      EXACT_REFERENCE)
         print(f"(d) use_kernels={uk} {xruns[uk]}")
-    occ_launches += sum(n[1] for n in xlaunches.values())
-    cross_launches = sum(n[2] for n in xlaunches.values())
-    angle_launches = sum(n[3] for n in xlaunches.values())
     print("exact path: ok, equal to the JAX reference constants "
           f"(ints exact, floats rtol {RTOL})", flush=True)
+
+    # (e) the serving front and the standalone enhanced algorithms
+    reqs = [(p, edges) for p in batch]
+    dreqs = [(p, dedges) for p in dbatch]
+    server = ReadabilityServer(cfg)
+    kserver = ReadabilityServer(kcfg)
+    with warnings.catch_warnings(record=True) as shim_warnings:
+        warnings.simplefilter("always")
+        xserver = ReadabilityServer(method="exact")
+    check(any(issubclass(w.category, DeprecationWarning)
+              for w in shim_warnings),
+          "(e3) ReadabilityServer(method='exact') did not warn")
+
+    def enhanced():
+        return (count_crossings_enhanced(pos, edges, n_strips=N_STRIPS),
+                crossing_angle_enhanced(pos, edges, n_strips=N_STRIPS),
+                count_occlusions_enhanced(pos, RADIUS))
+
+    with recording_launches(*kernel_mods) as rec:
+        e1 = run_counted("e1", rec, lambda: [
+            server.evaluate_batch(reqs) for _ in range(2)])
+        e2 = run_counted("e2", rec, lambda: kserver.evaluate_batch(reqs))
+        e3 = run_counted("e3", rec, lambda: xserver.evaluate(epos, eedges))
+        drills = run_counted("e4", rec, lambda: run_drills(
+            dcfg, dreqs, drill_clean(dcfg, dreqs)))
+        e5 = run_counted("e5", rec, enhanced)
+    print("launches in (e) (strip_reversal, occlusion_pairs, "
+          f"segment_crossing, crossing_angle_sum): "
+          f"{ {k: v for k, v in sub_launches.items() if k[0] == 'e'} }",
+          flush=True)
+
+    # (e1) one dispatch of B = 8 per round, the second round a plan hit
+    s1 = server.stats
+    check_clean("(e1)", e1[0] + e1[1], s1)
+    check((s1["dispatches"], s1["coalesced"], s1["plan_misses"],
+           s1["plan_hits"], s1["replans"]) == (2, 2 * BATCH, 1, 1, 0),
+          f"(e1) stats {s1}")
+    for rnd in (0, 1):
+        for i, r in enumerate(e1[rnd]):
+            check(r.overflow == 0, f"(e1) overflow on {i}")
+            check_scores(f"(e1) round {rnd} [{i}]", r, REFERENCE["batch"][i])
+    e1_slab = [("strip_reversal", tuple(args[0].shape))
+               for _, args in slabs["e1"]]
+    check(seen_shapes["e1"] == sorted(e1_slab * 2),
+          f"(e1) launched {seen_shapes['e1']}, planned {e1_slab} per round")
+    # (e2) the kernels backend: one dispatch, each member on flat buckets
+    # and the all-pairs occlusion count
+    s2 = kserver.stats
+    check_clean("(e2)", e2, s2)
+    check((s2["dispatches"], s2["coalesced"]) == (1, BATCH),
+          f"(e2) stats {s2}")
+    for i, r in enumerate(e2):
+        check(r.overflow == 0, f"(e2) overflow on {i}")
+        check_scores(f"(e2) [{i}]", r, REFERENCE["batch"][i])
+    e2_planned = sorted([("strip_reversal", tuple(args[0].shape))
+                         for _, args in slabs["e2"]]
+                        + [("occlusion_pairs", (n_pad,))] * BATCH)
+    check(seen_shapes["e2"] == e2_planned,
+          f"(e2) launched {seen_shapes['e2']}, planned {e2_planned}")
+    # (e3) the exact method of the legacy mirror is (d0)'s call
+    check(e3.ok and e3.overflow == 0, f"(e3) {e3}")
+    check_scores("(e3) server method='exact'", e3, EXACT_REFERENCE)
+    check(sub_launches["e3"] == (0, 1, 1, 1)
+          and seen_shapes["e3"] == exact_planned,
+          f"(e3) launched {sub_launches['e3']} on {seen_shapes['e3']}")
+    # (e4) the drills launched only shapes checked in phase 2
+    check(sub_launches["e4"][0] > 0, f"(e4) launched {sub_launches['e4']}")
+    # (e5) the enhanced wrappers
+    (ec, ec_ov), (e_ca, ca_count, ca_dev, ca_ov), (nc, nc_ov) = e5
+    want5 = ENHANCED_REFERENCE
+    for label, got5, want in (
+            ("count_crossings_enhanced", (ec, ec_ov),
+             want5["count_crossings_enhanced"]),
+            ("crossing_angle_enhanced", (ca_count, ca_ov),
+             want5["crossing_angle_enhanced"]),
+            ("count_occlusions_enhanced", (nc, nc_ov),
+             want5["count_occlusions_enhanced"])):
+        check((int(got5[0]), int(got5[1])) == (want["count"],
+                                               want["overflow"]),
+              f"(e5) {label}: ({int(got5[0])}, {int(got5[1])}), reference "
+              f"({want['count']}, {want['overflow']})")
+    for f, g in (("edge_crossing_angle", e_ca), ("dev_sum", ca_dev)):
+        w = want5["crossing_angle_enhanced"][f]
+        check(abs(float(g) - w) <= RTOL * abs(w),
+              f"(e5) crossing_angle_enhanced {f} = {float(g)!r}, reference "
+              f"{w!r} (rtol {RTOL})")
+    e5_planned = sorted([("strip_reversal", tuple(args[0].shape))
+                         for _, args in slabs["c"]] * 2)
+    check(seen_shapes["e5"] == e5_planned,
+          f"(e5) launched {seen_shapes['e5']}, planned {e5_planned}")
+    print(f"(e1)[0] {e1[0][0]}")
+    print(f"(e3) {e3}")
+    print(f"(e5) E_c {int(ec)}, E_ca {float(e_ca)!r} over {int(ca_count)} "
+          f"crossings, N_c {int(nc)}; drills passed: {sorted(drills)}")
+    print("serving front and enhanced algorithms: ok, equal to the JAX "
+          f"reference constants (ints exact, floats rtol {RTOL})",
+          flush=True)
+
+    # every launched shape was checked in phase 2
+    launched = Counter(item for shapes in seen_shapes.values()
+                       for item in shapes)
+    checked = {"strip_reversal": rev_checked, "occlusion_pairs": occ_checked,
+               "segment_crossing": cross_checked,
+               "crossing_angle_sum": cross_checked}
+    unchecked = sorted(k for k in launched if k[1] not in checked[k[0]])
+    check(not unchecked, f"launched on shapes not checked in phase 2: "
+                         f"{unchecked}")
+    check(sum(launched.values()) == sum(total_launches.values()),
+          f"recorded launches {dict(launched)}, counted "
+          f"{dict(total_launches)}")
 
     # -- 4. timings --------------------------------------------------------
     path_ms = {
@@ -928,10 +1264,18 @@ def main() -> int:
     for uk in (False, True):
         path_ms[f"d{int(uk)}"] = cuda_ms(lambda: evaluate_exact(
             epos, eedges, config=xcfg, use_kernels=uk))
+    path_ms["e1"] = cuda_ms(lambda: server.evaluate_batch(reqs))
+    path_ms["e2"] = cuda_ms(lambda: kserver.evaluate_batch(reqs))
+    path_ms["e3"] = cuda_ms(lambda: xserver.evaluate(epos, eedges))
+    path_ms["e5"] = cuda_ms(enhanced)
     for k, label in (("a", "evaluate fused"), ("b", f"evaluate_batch B={BATCH}"),
                      ("c", "evaluate kernels"),
                      ("d0", "evaluate_exact use_kernels=False"),
-                     ("d1", "evaluate_exact use_kernels=True")):
+                     ("d1", "evaluate_exact use_kernels=True"),
+                     ("e1", f"server fused, {BATCH} requests"),
+                     ("e2", f"server kernels, {BATCH} requests"),
+                     ("e3", "server method='exact'"),
+                     ("e5", "enhanced E_c + E_ca + N_c")):
         print(f"time ({k}) {label}: {path_ms[k]:.3f} ms "
               f"(median of {REPEATS}, CUDA events) on {card}", flush=True)
 
@@ -955,8 +1299,16 @@ def main() -> int:
         return dict(ms=med, wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=b_ms,
                     bound_by=by)
 
-    def total(rows_):
-        """Sum the per-shape numbers of one kernel over one pass."""
+    def total(name, time_shape):
+        """One kernel's numbers summed over its launches in the pass: each
+        launched shape timed once (``time_shape``) and counted as often
+        as it was launched."""
+        rows_ = []
+        for (k, shape), n in sorted(launched.items()):
+            if k == name:
+                row = time_shape(shape)
+                print(f"  {name} {shape}: {n} launches in the pass")
+                rows_ += [row] * n
         by = {}
         for r in rows_:
             by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"]
@@ -965,33 +1317,24 @@ def main() -> int:
         out["bound_by"] = max(by, key=by.get)
         return out
 
-    rev_rows = []
-    for path, items in slabs.items():
-        for label, args in items:
-            rev_rows.append(time_kernel(
-                "strip_reversal", f"({path}) {label}", tuple(args[0].shape),
-                raw_launcher("strip_reversal", args, ideal=ideal), 20,
-                lambda: strip_reversal_rows(*args, ideal=ideal),
-                lambda: strip_reversal_rows_plain(*args, ideal=ideal),
-                reversal_bound_ms(args)))
-    rev = total(rev_rows)
-    # (c) launches occlusion_pairs once, (d) twice
-    occ_rows = [time_kernel(
-        "occlusion_pairs", "(c)", (n_pad,),
-        raw_launcher("occlusion_pairs", [occ_x, occ_y, occ_ok],
-                     radius=RADIUS), 3,
-        lambda: occlusion_pairs(occ_x, occ_y, occ_ok, RADIUS),
-        lambda: occlusion_pairs_plain(occ_x, occ_y, occ_ok, RADIUS),
-        occlusion_bound_ms(occ_x, occ_ok, int(want)))]
-    occ_rows += [time_kernel(
-        "occlusion_pairs", "(d)", (x_pad,),
-        raw_launcher("occlusion_pairs", [xocc_x, xocc_y, xocc_ok],
-                     radius=EXACT_RADIUS), 20,
-        lambda: occlusion_pairs(xocc_x, xocc_y, xocc_ok, EXACT_RADIUS),
-        lambda: occlusion_pairs_plain(xocc_x, xocc_y, xocc_ok,
-                                      EXACT_RADIUS),
-        occlusion_bound_ms(xocc_x, xocc_ok, want_x))] * 2
-    occ = total(occ_rows)
+    def time_reversal(shape):
+        label, args = rev_checked[shape]
+        return time_kernel(
+            "strip_reversal", label, shape,
+            raw_launcher("strip_reversal", args, ideal=ideal), 20,
+            lambda: strip_reversal_rows(*args, ideal=ideal),
+            lambda: strip_reversal_rows_plain(*args, ideal=ideal),
+            reversal_bound_ms(args))
+
+    def time_occlusion(shape):
+        label, args, radius, occluded = occ_checked[shape]
+        return time_kernel(
+            "occlusion_pairs", label, shape,
+            raw_launcher("occlusion_pairs", list(args), radius=radius),
+            3 if shape[0] > 65536 else 20,
+            lambda: occlusion_pairs(*args, radius),
+            lambda: occlusion_pairs_plain(*args, radius),
+            occlusion_bound_ms(args[0], args[2], occluded))
 
     x1, y1, x2, y2, th, v, u, ok = xargs
     n_valid = float(ok.sum())
@@ -1000,47 +1343,58 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"(d) straddling pairs (shared endpoints included): {straddles}, "
           f"crossings {crossings}", flush=True)
-    cross = total([time_kernel(
-        "segment_crossing", "(d)", (e_pad,),
-        raw_launcher("segment_crossing", list(xargs)), 2,
-        lambda: crossing_count(x1, y1, x2, y2, v, u, ok),
-        lambda: crossing_count_plain(x1, y1, x2, y2, v, u, ok),
-        crossing_bound_ms(e_pad, n_valid, straddles, crossings, angle=False),
-        plain_repeats=EXACT_PLAIN_REPEATS)] * cross_launches)
-    angle = total([time_kernel(
-        "crossing_angle_sum", "(d)", (e_pad,),
-        raw_launcher("crossing_angle_sum", list(xargs),
-                     ideal=xcfg.ideal_angle), 2,
-        lambda: crossing_angle_stats(*xargs, ideal=xcfg.ideal_angle),
-        lambda: crossing_angle_plain(*xargs, ideal=xcfg.ideal_angle),
-        crossing_bound_ms(e_pad, n_valid, straddles, crossings, angle=True),
-        plain_repeats=EXACT_PLAIN_REPEATS,
-        note=f"; ptxas {ptxas['crossing_angle_sum']}")] * angle_launches)
+
+    def time_crossing(shape):
+        return time_kernel(
+            "segment_crossing", cross_checked[shape][0], shape,
+            raw_launcher("segment_crossing", list(xargs)), 2,
+            lambda: crossing_count(x1, y1, x2, y2, v, u, ok),
+            lambda: crossing_count_plain(x1, y1, x2, y2, v, u, ok),
+            crossing_bound_ms(e_pad, n_valid, straddles, crossings,
+                              angle=False),
+            plain_repeats=EXACT_PLAIN_REPEATS)
+
+    def time_angle(shape):
+        return time_kernel(
+            "crossing_angle_sum", cross_checked[shape][0], shape,
+            raw_launcher("crossing_angle_sum", list(xargs),
+                         ideal=xcfg.ideal_angle), 2,
+            lambda: crossing_angle_stats(*xargs, ideal=xcfg.ideal_angle),
+            lambda: crossing_angle_plain(*xargs, ideal=xcfg.ideal_angle),
+            crossing_bound_ms(e_pad, n_valid, straddles, crossings,
+                              angle=True),
+            plain_repeats=EXACT_PLAIN_REPEATS,
+            note=f"; ptxas {ptxas['crossing_angle_sum']}")
+
+    rev = total("strip_reversal", time_reversal)
+    occ = total("occlusion_pairs", time_occlusion)
+    cross = total("segment_crossing", time_crossing)
+    angle = total("crossing_angle_sum", time_angle)
 
     kernels = [
         dict(name="strip_reversal", route="cuda",
              source="src/repro_torch/kernels/csrc/strip_reversal.cu",
              replaces="src/repro/kernels/strip_reversal.py:25",
-             launches=rev_launches, max_abs_err=rev_err, **rev,
-             library_ms=None),
+             launches=total_launches["strip_reversal"], max_abs_err=rev_err,
+             **rev, library_ms=None),
         dict(name="occlusion_pairs", route="cuda",
              source="src/repro_torch/kernels/csrc/occlusion_pairs.cu",
              replaces="src/repro/kernels/occlusion_pairs.py:30",
-             launches=occ_launches, max_abs_err=occ_err, **occ,
-             library_ms=None),
+             launches=total_launches["occlusion_pairs"], max_abs_err=occ_err,
+             **occ, library_ms=None),
         dict(name="segment_crossing", route="cuda",
              source="src/repro_torch/kernels/csrc/segment_crossing.cu",
              replaces="src/repro/kernels/segment_crossing.py:39",
-             launches=cross_launches, max_abs_err=cross_err, **cross,
-             library_ms=None),
+             launches=total_launches["segment_crossing"],
+             max_abs_err=cross_err, **cross, library_ms=None),
         dict(name="crossing_angle_sum", route="cuda",
              source="src/repro_torch/kernels/csrc/crossing_angle_sum.cu",
              replaces="src/repro/kernels/crossing_angle_sum.py:27",
-             launches=angle_launches, max_abs_err=angle_err, **angle,
-             library_ms=None),
+             launches=total_launches["crossing_angle_sum"],
+             max_abs_err=angle_err, **angle, library_ms=None),
     ]
     print("kernel times are summed over every launch of one pass of "
-          "(a)-(d); launches are counted in that pass; ms is the kernel "
+          "(a)-(e); launches are counted in that pass; ms is the kernel "
           "alone on the device (median), wrapper_ms the wrapper's call",
           flush=True)
     print(json.dumps({"kernels": kernels}))

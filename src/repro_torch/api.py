@@ -15,7 +15,8 @@ exact all-pairs occlusion kernel).  ``"distributed"``,
 ``"graph_sharded"`` and ``precision="bfloat16"`` are accepted by
 :class:`EvalConfig` (its digest needs them) but raise
 ``NotImplementedError`` here, as do ``register_layout`` / ``update`` /
-``search``: they are still to port.  :func:`evaluate_exact` is the exact
+``search``: they are still to port.  :func:`evaluator_for` is the
+process-wide evaluator cache the deprecated shims map onto.  :func:`evaluate_exact` is the exact
 all-pairs reference path (paper S3.1), the ground truth of the enhanced
 metrics.
 
@@ -28,27 +29,36 @@ reference's.
 
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import numpy as np
 
 from repro_torch.core import engine
 from repro_torch.core.engine import ALL_METRICS  # noqa: F401  (re-export)
 from repro_torch.core.keys import (EvalConfig, pow2_bucket,  # noqa: F401
-                                   pow2_chunks, topology_hash)
+                                   pow2_chunks, reset_deprecation_warnings,
+                                   topology_hash)
 from repro_torch.core.metrics import evaluate_exact  # noqa: F401
 from repro_torch.core.scores import (ReadabilityScores,  # noqa: F401
                                      host_batch, scores_from_batch,
                                      scores_from_result)
-from repro_torch.core.validate import (CapacityError,  # noqa: F401
-                                       InvalidInputError, ReadabilityError,
-                                       validate_batch, validate_request)
+from repro_torch.core.validate import (BackendUnavailableError,  # noqa: F401
+                                       CancelledError, CapacityError,
+                                       DeadlineExceededError,
+                                       InvalidInputError, OverloadedError,
+                                       ReadabilityError, validate_batch,
+                                       validate_request)
+from repro_torch.launch.admission import CancelToken  # noqa: F401
 from repro_torch.launch.session import EvalSession
 
 __all__ = [
-    "ALL_METRICS", "CapacityError", "EvalConfig", "EvalSession",
-    "Evaluator", "InvalidInputError", "ReadabilityError",
-    "ReadabilityScores", "evaluate_exact", "pow2_bucket", "pow2_chunks",
-    "scores_from_batch", "scores_from_result", "topology_hash",
-    "validate_batch", "validate_request",
+    "ALL_METRICS", "BackendUnavailableError", "CancelToken",
+    "CancelledError", "CapacityError", "DeadlineExceededError", "EvalConfig",
+    "EvalSession", "Evaluator", "InvalidInputError", "OverloadedError",
+    "ReadabilityError", "ReadabilityScores", "evaluate_exact",
+    "evaluator_for", "pow2_bucket", "pow2_chunks",
+    "reset_deprecation_warnings", "scores_from_batch", "scores_from_result",
+    "topology_hash", "validate_batch", "validate_request",
 ]
 
 SERVED_BACKENDS = ("fused", "eager", "kernels")
@@ -67,7 +77,9 @@ class Evaluator:
     * :meth:`evaluate_batch` -- ``(B, V, 2)`` candidate layouts of ONE
       graph in one batched pass -> batched host scores (``.unbatch()``).
     * :meth:`session` -- a fresh :class:`EvalSession` on the same config
-      and device.
+      and device; ``**knobs`` are its serving-policy knobs, the overload
+      knobs (``max_queue``, ``default_deadline``, ``dispatch_timeout``,
+      ...) included.
     """
 
     def __init__(self, config: EvalConfig = None, *, device=None,
@@ -170,3 +182,28 @@ def _pad_degenerate(batch_pos, edges):
     edges_p = np.zeros((max(n_e, 1), 2), np.int32)
     edges_p[:n_e] = edges
     return pos_p, edges_p
+
+
+# ---------------------------------------------------------------------------
+# the shared evaluator cache (what the deprecated kwarg mirrors map onto)
+# ---------------------------------------------------------------------------
+
+_EVALUATORS: "OrderedDict[tuple, Evaluator]" = OrderedDict()
+_EVALUATOR_CACHE_SIZE = 64
+
+
+def evaluator_for(config: EvalConfig, *, device=None) -> Evaluator:
+    """The process-wide :class:`Evaluator` for ``config`` on ``device``.
+
+    Keyed by the (frozen, canonicalized) config and the device, so every
+    old call site that spells the same configuration shares one evaluator
+    and one plan cache.  A small LRU: configs are few, and the plans
+    inside each evaluator's session have their own LRU."""
+    key = (config, engine.resolve_device(device))
+    ev = _EVALUATORS.get(key)
+    if ev is None:
+        ev = _EVALUATORS[key] = Evaluator(config, device=key[1])
+    _EVALUATORS.move_to_end(key)
+    while len(_EVALUATORS) > _EVALUATOR_CACHE_SIZE:
+        _EVALUATORS.popitem(last=False)
+    return ev

@@ -72,6 +72,9 @@ DEFAULT_IDEAL = float(_calib.DEFAULT_IDEAL)
 
 _AXES = {"vertical": (0,), "horizontal": (1,), "both": (0, 1)}
 
+# the reference's name of the engine's result type
+EngineResult = ReadabilityScores
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for
@@ -294,17 +297,19 @@ def plan_readability(pos, edges, *, radius: float = 0.5, ideal_angle=None,
 # fused evaluation (all metrics)
 # ---------------------------------------------------------------------------
 
-def _inputs(plan, pos, edges, device):
-    """``pos`` / ``edges`` as tensors: tensors stay on their device (moved
-    if ``device`` is given), host arrays go to ``resolve_device(device)``."""
+def device_inputs(pos, edges, device=None, dtype=torch.float32):
+    """``pos`` / ``edges`` (may be None) as tensors: tensors stay on their
+    device (moved if ``device`` is given), host arrays go to
+    ``resolve_device(device)``."""
     if isinstance(pos, torch.Tensor):
         dev = pos.device if device is None else torch.device(device)
     else:
         dev = resolve_device(device)
     pos = torch.as_tensor(_host(pos, np.float32) if not isinstance(
-        pos, torch.Tensor) else pos).to(dev, plan.dtype)
-    edges = torch.as_tensor(_host(edges, np.int32) if not isinstance(
-        edges, torch.Tensor) else edges).to(dev, torch.int32)
+        pos, torch.Tensor) else pos).to(dev, dtype)
+    if edges is not None:
+        edges = torch.as_tensor(_host(edges, np.int32) if not isinstance(
+            edges, torch.Tensor) else edges).to(dev, torch.int32)
     return pos, edges
 
 
@@ -348,7 +353,7 @@ def _combine(stats, want_ec, want_eca, out):
 def _evaluate(plan: ReadabilityPlan, pos, edges, use_kernels: bool,
               n_valid_vertices=None, n_valid_edges=None,
               device=None) -> ReadabilityScores:
-    pos, edges = _inputs(plan, pos, edges, device)
+    pos, edges = device_inputs(pos, edges, device, plan.dtype)
     dev = pos.device
     vertex_valid = _valid_mask(pos.shape[0], n_valid_vertices, dev)
     edge_valid = _valid_mask(edges.shape[0], n_valid_edges, dev)
@@ -434,7 +439,7 @@ def evaluate_batched_body(plan: ReadabilityPlan, batch_pos, edges,
     rows per tier.  Integer metrics equal looping :func:`_evaluate` over
     the members.
     """
-    pos, edges = _inputs(plan, batch_pos, edges, device)
+    pos, edges = device_inputs(batch_pos, edges, device, plan.dtype)
     dev = pos.device
     B = pos.shape[0]
     vertex_valid = _valid_mask(pos.shape[1], n_valid_vertices, dev)

@@ -102,6 +102,18 @@ def _scalar(value, like):
     return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
+def _index(x):
+    """Float -> int32 as the reference's ``astype(jnp.int32)`` converts
+    under XLA: NaN to 0, out-of-range values saturated.  PyTorch leaves
+    both undefined (the CPU gives INT64_MIN, and a later ``- 1`` wraps),
+    so a non-finite coordinate would bucket differently.  Returns int32:
+    arithmetic on the result wraps as the reference's does."""
+    x = torch.clamp(torch.where(torch.isnan(x), 0.0, x), -2.0 ** 31,
+                    2.0 ** 31)
+    return torch.clamp(x.to(torch.int64), -2 ** 31,
+                       2 ** 31 - 1).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # generic bucketing (the 'groupBy')
 # ---------------------------------------------------------------------------
@@ -208,10 +220,10 @@ def cell_indices(pos, radius, origin, nx: int, ny: int, cell_size=None):
     keeps the half-neighbourhood sweep exact."""
     size = _scalar(2.0 * radius if cell_size is None else cell_size,
                    pos)
-    ix = torch.clamp(torch.floor((pos[..., 0] - origin[0]) / size)
-                     .to(torch.int64), 0, nx - 1)
-    iy = torch.clamp(torch.floor((pos[..., 1] - origin[1]) / size)
-                     .to(torch.int64), 0, ny - 1)
+    ix = torch.clamp(_index(torch.floor((pos[..., 0] - origin[0]) / size)),
+                     0, nx - 1).to(torch.int64)
+    iy = torch.clamp(_index(torch.floor((pos[..., 1] - origin[1]) / size)),
+                     0, ny - 1).to(torch.int64)
     return ix, iy, iy * nx + ix
 
 
@@ -279,10 +291,10 @@ def build_strip_segments(pos, edges, n_strips: int, max_segments: int, *,
     xa = torch.minimum(x1, x2)
     xb = torch.maximum(x1, x2)
     # strips fully spanned: s in [ceil((xa-lo)/w), floor((xb-lo)/w) - 1]
-    s_first = torch.ceil((xa - lo) / width).to(torch.int64)
-    s_last = torch.floor((xb - lo) / width).to(torch.int64) - 1
-    s_first = torch.clamp(s_first, 0, n_strips - 1)
-    s_last = torch.clamp(s_last, -1, n_strips - 1)
+    s_first = _index(torch.ceil((xa - lo) / width))
+    s_last = _index(torch.floor((xb - lo) / width)) - 1
+    s_first = torch.clamp(s_first, 0, n_strips - 1).to(torch.int64)
+    s_last = torch.clamp(s_last, -1, n_strips - 1).to(torch.int64)
     n_seg = torch.where(edge_valid, torch.clamp_min(s_last - s_first + 1, 0),
                         0)
 
@@ -347,10 +359,10 @@ def build_strip_segments_batched(pos, edges, n_strips: int,
 
     xa = torch.minimum(x1, x2)
     xb = torch.maximum(x1, x2)
-    s_first = torch.ceil((xa - lo) / width).to(torch.int64)
-    s_last = torch.floor((xb - lo) / width).to(torch.int64) - 1
-    s_first = torch.clamp(s_first, 0, n_strips - 1)
-    s_last = torch.clamp(s_last, -1, n_strips - 1)
+    s_first = _index(torch.ceil((xa - lo) / width))
+    s_last = _index(torch.floor((xb - lo) / width)) - 1
+    s_first = torch.clamp(s_first, 0, n_strips - 1).to(torch.int64)
+    s_last = torch.clamp(s_last, -1, n_strips - 1).to(torch.int64)
     n_seg = torch.where(ev, torch.clamp_min(s_last - s_first + 1, 0), 0)
 
     offsets = torch.cumsum(n_seg, 1)                  # (B, E) inclusive
@@ -469,6 +481,22 @@ def plan_strip_occupancy(pos, edges, n_strips: int, pad: float = 1.25,
     np.add.at(diff, last + 1, -1)
     per_strip = np.cumsum(diff[:-1])
     return max_segments, per_strip
+
+
+def plan_strips(pos, edges, n_strips: int, pad: float = 1.25,
+                cap_multiple: int = 8, axis: int = 0):
+    """Pick ``(max_segments, cap)`` from concrete data (host side; tensors
+    are fetched).  Both the segment budget and the per-strip capacity
+    carry the ``pad`` headroom, so a plan made from one layout keeps
+    serving perturbed siblings without tripping the overflow counter."""
+    if isinstance(pos, torch.Tensor):
+        pos = pos.detach().cpu().numpy()
+    if isinstance(edges, torch.Tensor):
+        edges = edges.detach().cpu().numpy()
+    max_segments, per_strip = plan_strip_occupancy(pos, edges, n_strips,
+                                                   pad=pad, axis=axis)
+    cap = _round_up(int(per_strip.max() * pad) + 8, cap_multiple)
+    return max_segments, cap
 
 
 def _next_pow2(n: int, floor: int = 8) -> int:

@@ -6,12 +6,17 @@ evaluate; :meth:`EvalConfig.digest` is a process-stable content hash,
 equal to the reference's for equal configs.  The shape-bucket helpers
 (:func:`pow2_bucket`, :func:`pow2_chunks`) and :func:`topology_hash` live
 here so the plan-cache key and the request padding can never disagree.
+:meth:`EvalConfig.from_legacy` maps the old kwarg mirrors onto a config,
+and :func:`warn_once` is the deprecation plumbing the shims warn through
+(the port's own registry: the reference's shims warn through theirs).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import threading
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -164,3 +169,45 @@ class EvalConfig:
         """Process-stable content hash of the (canonicalized) config."""
         payload = repr(dataclasses.astuple(self)).encode()
         return hashlib.blake2b(payload, digest_size=12).hexdigest()
+
+    @classmethod
+    def from_legacy(cls, *, radius: float = 0.5, n_strips: int = 64,
+                    orientation: str = "both", metrics=ALL_METRICS,
+                    ideal_angle=None, use_kernels: bool = False,
+                    backend: Optional[str] = None,
+                    tier_strips: Optional[bool] = None) -> "EvalConfig":
+        """Map one of the old kwarg mirrors onto a config (shim glue)."""
+        if backend is None:
+            backend = "kernels" if use_kernels else "fused"
+        return cls(radius=radius, n_strips=n_strips, orientation=orientation,
+                   metrics=tuple(metrics), ideal_angle=ideal_angle,
+                   tier_strips=tier_strips, backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# deprecation plumbing (each shim warns exactly once per process)
+# ---------------------------------------------------------------------------
+
+_WARNED: set = set()
+# watchdog worker threads reach the shims too: the check-and-add is atomic
+# under this lock, so two threads can never both warn for one key
+_WARNED_LOCK = threading.Lock()
+
+
+def warn_once(key: str, message: str, *, stacklevel: int = 3) -> None:
+    """Issue ``DeprecationWarning`` once per ``key`` per process.
+
+    The shims (``evaluate_layout``, ``EvalSession(**kwargs)``,
+    ``ReadabilityServer(method=...)``) all warn through here, so steady
+    traffic through old call sites logs one line, not millions."""
+    with _WARNED_LOCK:
+        if key in _WARNED:
+            return
+        _WARNED.add(key)
+    warnings.warn(message, DeprecationWarning, stacklevel=stacklevel)
+
+
+def reset_deprecation_warnings() -> None:
+    """Forget which shims already warned (test hook)."""
+    with _WARNED_LOCK:
+        _WARNED.clear()

@@ -1,6 +1,15 @@
-"""The exact all-pairs readability scores (paper S3.1); counterpart of
-:func:`repro.core.metrics.evaluate_exact`, re-exported by
-:mod:`repro_torch.api`.
+"""The exact all-pairs readability scores (paper S3.1) and the legacy
+evaluation shims; counterpart of :mod:`repro.core.metrics`.
+
+* :func:`evaluate_exact` -- the exact-reference front door, re-exported
+  by :mod:`repro_torch.api` (not deprecated).
+* :func:`evaluate_layout` -- DEPRECATED kwarg mirror: ``method="exact"``
+  routes to :func:`evaluate_exact`, the enhanced path to the cached
+  config-keyed evaluator (:func:`repro_torch.api.evaluator_for`).
+* ``ReadabilityReport``, :func:`report_from_result`,
+  :func:`reports_from_batch` and ``EngineResult`` -- the old names of
+  :class:`~repro_torch.core.scores.ReadabilityScores` and its
+  conversions.
 
 The exact path is the ground truth the enhanced (strip and grid) path is
 measured against, as in the paper's accuracy tables: O(V^2) occlusion,
@@ -14,15 +23,23 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import engine
 from repro_torch.core.crossing import count_crossings_exact
-from repro_torch.core.crossing_angle import crossing_angle_exact
+from repro_torch.core.crossing_angle import DEFAULT_IDEAL, crossing_angle_exact
 from repro_torch.core.edge_length import edge_length_variation
-from repro_torch.core.engine import resolve_device
-from repro_torch.core.keys import EvalConfig
+from repro_torch.core.engine import ALL_METRICS, resolve_device
+from repro_torch.core.keys import EvalConfig, warn_once
 from repro_torch.core.min_angle import minimum_angle
 from repro_torch.core.occlusion import count_occlusions_exact
-from repro_torch.core.scores import ReadabilityScores
+from repro_torch.core.scores import (ReadabilityScores, scores_from_batch,
+                                     scores_from_result)
 from repro_torch.kernels import ops
+
+# Legacy names: one typed result for every path (see repro_torch.core.scores).
+ReadabilityReport = ReadabilityScores
+report_from_result = scores_from_result
+reports_from_batch = scores_from_batch
+EngineResult = engine.EngineResult
 
 
 def evaluate_exact(pos, edges, *, config: EvalConfig = None,
@@ -72,3 +89,30 @@ def evaluate_exact(pos, edges, *, config: EvalConfig = None,
         out["crossing_count_for_angle"] = int(count)
     return ReadabilityScores(overflow=0, n_vertices=int(pos.shape[0]),
                              n_edges=int(edges.shape[0]), **out)
+
+
+def evaluate_layout(pos, edges, *, radius: float = 0.5,
+                    ideal_angle=DEFAULT_IDEAL, method: str = "enhanced",
+                    metrics=ALL_METRICS, n_strips: int = 64,
+                    orientation: str = "both", use_kernels: bool = False,
+                    device=None) -> ReadabilityScores:
+    """DEPRECATED: use :class:`repro_torch.api.Evaluator` (or
+    :func:`evaluate_exact` for ``method="exact"``).
+
+    Kwargs map 1:1 onto :class:`~repro_torch.core.keys.EvalConfig`; the
+    enhanced path is served by the cached evaluator of that config and
+    ``device``, so repeated calls on one topology reuse its plan."""
+    warn_once(
+        "evaluate_layout",
+        "evaluate_layout is deprecated: build an EvalConfig and use "
+        "repro_torch.api.Evaluator (evaluate_exact for method='exact'); "
+        "this shim maps onto the cached config-keyed Evaluator")
+    config = EvalConfig.from_legacy(
+        radius=radius, n_strips=n_strips, orientation=orientation,
+        metrics=metrics, ideal_angle=float(ideal_angle),
+        use_kernels=use_kernels)
+    if method == "exact":
+        return evaluate_exact(pos, edges, config=config,
+                              use_kernels=use_kernels, device=device)
+    from repro_torch import api
+    return api.evaluator_for(config, device=device).evaluate(pos, edges)

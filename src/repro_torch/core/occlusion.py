@@ -7,7 +7,9 @@ bucketed per cell and each cell is compared densely with itself (i < j)
 and with its half neighbourhood: exact, because the cell size is >= 2r.
 The exact all-pairs count (:func:`count_occlusions_exact`) is the
 occlusion-pair kernel (:mod:`repro_torch.kernels.occlusion_pairs`), also
-used by ``backend="kernels"``.
+used by ``backend="kernels"``.  :func:`count_occlusions_enhanced` plans
+the grid from the data and counts on it (no kernel: the reference uses
+no Pallas there either).
 """
 
 from __future__ import annotations
@@ -119,3 +121,19 @@ def count_occlusions_gridded_batched(pos, radius, origin, nx: int, ny: int,
     per_row = _sweep_rows(x, y, bval, torch.clamp_min(nbr_f, 0),
                           nbr_f >= 0, thresh)
     return per_row.reshape(B, n_cells).sum(dim=1), overflow
+
+
+def count_occlusions_enhanced(pos, radius, *, valid=None,
+                              cell_block: int = 512, device=None):
+    """Host-facing enhanced N_c: plans the grid from the data, then runs
+    the gridded counter; returns ``(count, overflow)``.  ``cell_block`` is
+    the reference's row blocking (the sweep here blocks by a pair-element
+    budget; counts do not depend on it).  Runs on CUDA unless ``device``
+    says otherwise (tensors stay on their device), and raises when no
+    CUDA device exists."""
+    from repro_torch.core.engine import device_inputs
+    pos, _ = device_inputs(pos, None, device)
+    origin, nx, ny, cap, size = gridlib.plan_occlusion_grid(
+        pos.detach().cpu().numpy(), radius)
+    return count_occlusions_gridded(pos, radius, origin, nx, ny, cap,
+                                    valid=valid, cell_size=size)

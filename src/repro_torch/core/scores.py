@@ -16,6 +16,9 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.validate import (CancelledError, DeadlineExceededError,
+                                       OverloadedError)
+
 METRIC_FIELDS = ("node_occlusion", "minimum_angle", "edge_length_variation",
                  "edge_crossing", "edge_crossing_angle",
                  "crossing_count_for_angle")
@@ -75,6 +78,31 @@ class ReadabilityScores(NamedTuple):
     def ok(self) -> bool:
         """True when this slot evaluated (no quarantined error)."""
         return self.error is None
+
+    @property
+    def saturated(self) -> bool:
+        """True when capacities stayed overflowed after the bounded
+        replan retries (sanitize mode; counts may be under-reported)."""
+        return bool(self.flags) and bool(self.flags.get("saturated"))
+
+    @property
+    def shed(self) -> bool:
+        """True when admission control shed this request (``error`` is
+        :class:`~repro_torch.core.validate.OverloadedError`)."""
+        return isinstance(self.error, OverloadedError)
+
+    @property
+    def expired(self) -> bool:
+        """True when the request's deadline passed before its dispatch
+        completed (``error`` is
+        :class:`~repro_torch.core.validate.DeadlineExceededError`)."""
+        return isinstance(self.error, DeadlineExceededError)
+
+    @property
+    def cancelled(self) -> bool:
+        """True when the request's cancel token fired before dispatch
+        (``error`` is :class:`~repro_torch.core.validate.CancelledError`)."""
+        return isinstance(self.error, CancelledError)
 
     def raise_for_error(self) -> "ReadabilityScores":
         """Raise the quarantined error, if any; else return self."""

@@ -27,6 +27,30 @@ Usage (from the repository root)::
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py [--jit]
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --exact [--scale S]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --serve
+
+``--serve`` computes the constants of ``chip_smoke.py``'s phase (e), op
+by op: (e1) the reference's ``ReadabilityServer(EvalConfig(radius=0.5,
+n_strips=512))`` on the B=8 batch above as eight requests (one session
+dispatch of B=8 on a flat plan from member 0, padded to the pow2 buckets
+131072 / 262144), and (e5) ``count_crossings_enhanced``,
+``crossing_angle_enhanced`` (``n_strips=512``, ``"both"``) and
+``count_occlusions_enhanced`` on the layout alone.  Which constants (e)
+reuses, and why they apply:
+
+* (e1) and (e2) are held to ``REFERENCE["batch"]`` (the (b) values) on
+  integers: padded == natural (the padded tail is masked out) and flat ==
+  tiered (tiers change the bucket layout, never a count), so the
+  session's padded flat dispatch counts what (b)'s natural tiered batch
+  counts; floats agree at rtol 1e-5 (summation order).  (e2) is the
+  kernels backend: its N_c is the exact all-pairs count, equal to the
+  gridded count when the grid drops nothing (``overflow == 0``), as (c)
+  already shows.  ``--serve`` checks the reference server's op-by-op
+  (e1) integers against the (b) constants it is given.
+* (e3) is ``evaluate_exact(use_kernels=False)`` behind the server's
+  ``method="exact"`` shim, at radius 0.5 and the default ideal angle:
+  the very call of (d0), so it is held to ``EXACT_REFERENCE``.
+* (e5) has no earlier counterpart and gets its own constants.
 
 It prints one JSON object: the constants ``chip_smoke.py`` holds the card
 against.
@@ -43,11 +67,14 @@ import numpy as np
 import jax
 
 from repro.api import EvalConfig, Evaluator, evaluate_exact
+from repro.core import (count_crossings_enhanced, count_occlusions_enhanced,
+                        crossing_angle_enhanced)
 from repro.core.crossing_angle import crossing_angle_exact
 from repro.core.geometry import segment_theta
 from repro.core.occlusion import count_occlusions_exact
 from repro.graphs.datasets import paper_graph as ref_paper_graph
 from repro.graphs.layouts import random_layout as ref_random_layout
+from repro.launch.serve import ReadabilityServer
 from repro_torch.graphs.datasets import layout_local_graph, paper_graph
 from repro_torch.graphs.layouts import random_layout
 
@@ -99,6 +126,41 @@ def compute():
                 exact_node_occlusion=exact_nc,
                 seconds=dict(fused=t1 - t0, batch=t2 - t1, kernels=t3 - t2,
                              exact=t4 - t3))
+
+
+def compute_serve():
+    """(e1) and (e5), op by op (call under ``jax.disable_jit()``)."""
+    pos, edges, batch = inputs()
+    t0 = time.perf_counter()
+    server = ReadabilityServer(EvalConfig(radius=RADIUS, n_strips=N_STRIPS))
+    reports = server.evaluate_batch([(p, edges) for p in batch])
+    serve = [_row(r) for r in reports]
+    stats = {k: server.stats[k] for k in ("dispatches", "coalesced",
+                                          "replans", "plan_misses",
+                                          "quarantined", "dispatch_failures")}
+    # the (b) constants chip_smoke.py holds (e1) and (e2) to
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import INT_FIELDS, REFERENCE
+    same = [all(r[f] == want[f] for f in INT_FIELDS)
+            for r, want in zip(serve, REFERENCE["batch"])]
+    t1 = time.perf_counter()
+    jp, je = jax.numpy.asarray(pos), jax.numpy.asarray(edges)
+    ec, ec_ov = count_crossings_enhanced(jp, je, n_strips=N_STRIPS)
+    e_ca, count, dev_sum, ca_ov = crossing_angle_enhanced(
+        jp, je, n_strips=N_STRIPS)
+    nc, nc_ov = count_occlusions_enhanced(jp, RADIUS)
+    t2 = time.perf_counter()
+    enhanced = dict(
+        count_crossings_enhanced=dict(count=int(ec), overflow=int(ec_ov)),
+        crossing_angle_enhanced=dict(
+            edge_crossing_angle=float(e_ca), count=int(count),
+            dev_sum=float(dev_sum), overflow=int(ca_ov)),
+        count_occlusions_enhanced=dict(count=int(nc), overflow=int(nc_ov)))
+    return dict(serve=serve, serve_stats=stats,
+                serve_ints_equal_batch_constants=same, enhanced=enhanced,
+                seconds=dict(serve=t1 - t0, enhanced=t2 - t1))
 
 
 EXACT_DATASET, EXACT_GRAPH_SEED, EXACT_LAYOUT_SEED = "ego-Facebook", 0, 1
@@ -199,8 +261,14 @@ def main():
                     help="the exact all-pairs path on ego-Facebook")
     ap.add_argument("--scale", type=float, default=1.0,
                     help="graph scale of --exact (1.0: full size)")
+    ap.add_argument("--serve", action="store_true",
+                    help="phase (e): the server batch and the enhanced "
+                         "wrappers at |V| = 100,000")
     args = ap.parse_args()
-    if args.exact:
+    if args.serve:
+        with jax.disable_jit():
+            out = {"eager": compute_serve()}
+    elif args.exact:
         out = exact_main(args.scale, args.jit)
     else:
         with jax.disable_jit():
