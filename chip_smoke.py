@@ -56,9 +56,30 @@ Phases (any failed check raises):
    100,000 against ``ENHANCED_REFERENCE``.  Outside the drills any error
    slot or failure counter fails the run: split-and-retry would otherwise
    hide a kernel that fails to launch.
+   (f) the incremental path at full width: an ``EvalSession(cfg,
+   update_dirty_threshold=1.0)`` registers (a)'s layout and one interior
+   vertex is dragged for 20 frames (:func:`drag_moves`).  Every frame
+   must take the delta path (``flags["incremental"]``, ``delta_hits`` + 1,
+   no fallback), build nothing (``grid.CALL_COUNTS`` all 0), launch the
+   strip-reversal kernel once per orientation on its dirty strips, have
+   ``overflow == 0`` and equal a from-scratch ``sess.evaluate`` of the
+   moved layout (integers exactly, floats at rtol 1e-5); the last frame
+   equals ``DRAG_REFERENCE``.  The front door (``Evaluator(cfg)``)
+   replays the first 3 frames on the delta path, and a move of the
+   extremal vertex must fall back, counted, with a right result.  Phase
+   2 checks the kernel at every slab the drag hands it, captured by a
+   rehearsal of the drag on the plain version, and again with the
+   invalid slots of each dirty-strip slab filled with garbage and one
+   row emptied.
 4. **Timings**: median of 5 CUDA-event-timed runs after a warm-up, for
-   (a)-(e3) and (e5); for each kernel at each shape launched in one pass
-   of (a)-(e), its time alone on the device (median, min and max of 21
+   (a)-(e3) and (e5); for (f), over 2 replays of the drag on fresh
+   sessions, the median and p95 of a frame's ``update`` (host clock; the
+   call returns host scores), ``register_layout`` and its priming alone,
+   a warm full ``sess.evaluate`` of the dragged layout, and the
+   synchronizing CUDA calls of one frame
+   (``torch.cuda.set_sync_debug_mode``); for each kernel at each shape
+   launched in one pass of (a)-(f), its time alone on the device
+   (median, min and max of 21
    readings of back-to-back launches of its C entry, whose outputs are
    then held against the wrapper's result), its wrapper's time, its plain
    version's and its bound, counted from the operations these inputs
@@ -237,6 +258,42 @@ REFERENCE = {
 # chunk's members carry DRILL_DEADLINE and the server DRILL_TIMEOUT
 DRILL_N_V, DRILL_FRAC_LONG, DRILL_N_STRIPS = 10_000, 0.02, 128
 DRILL_DEADLINE, DRILL_TIMEOUT, DRILL_HANG_SECONDS = 1.0, 2.0, 10.0
+# phase (f): DRAG_FRAMES moves of one vertex of the |V| = 100,000 layout,
+# each a step of N(0, DRAG_STEP) per coordinate from
+# numpy.random.default_rng(DRAG_SEED) (benchmarks/serve_bench.py's drag);
+# the front door replays the first DRAG_FRONT frames, and the forced
+# fallback moves the vertex of largest x by DRAG_FALLBACK_STEP outward
+DRAG_FRAMES, DRAG_STEP, DRAG_SEED = 20, 0.2, 5
+DRAG_FRONT, DRAG_FALLBACK_STEP = 3, 0.05
+# timed replays of the drag (phase 4), each on a fresh session
+DRAG_REPLAYS = 2
+
+# JAX reference constants of phase (f): the reference's EvalSession(cfg,
+# update_dirty_threshold=1.0) on the |V| = 100,000 layout after the 20
+# moves of drag_moves (the last update's scores, and a from-scratch
+# evaluate of the final layout), made on the CPU with
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --drag
+# (op by op; every frame took the reference's delta path)
+DRAG_REFERENCE = {
+    "update": {
+        "node_occlusion": 1538904,
+        "minimum_angle": 0.7792065143585205,
+        "edge_length_variation": 0.013488225638866425,
+        "edge_crossing": 34571,
+        "edge_crossing_angle": 0.7176024317741394,
+        "crossing_count_for_angle": 34571,
+        "overflow": 0,
+    },
+    "scratch": {
+        "node_occlusion": 1538904,
+        "minimum_angle": 0.7792065143585205,
+        "edge_length_variation": 0.013488225638866425,
+        "edge_crossing": 34571,
+        "edge_crossing_angle": 0.7176024317741394,
+        "crossing_count_for_angle": 34571,
+        "overflow": 0,
+    },
+}
 
 # JAX reference constants of repro.api.evaluate_exact(pos, edges,
 # config=EvalConfig(radius=0.5), use_kernels=False) on the exact path's
@@ -286,6 +343,21 @@ class CheckFailed(RuntimeError):
 def check(ok, message):
     if not ok:
         raise CheckFailed(message)
+
+
+def drag_moves(pos, frames=DRAG_FRAMES):
+    """(f)'s drag: the vertex nearest the centre of the bounding box (a
+    small move of it keeps the strip domain) and its position after each
+    frame."""
+    import numpy as np
+    c = (pos.min(axis=0) + pos.max(axis=0)) / 2
+    v = int(np.argmin(((pos - c) ** 2).sum(axis=1)))
+    rng = np.random.default_rng(DRAG_SEED)
+    cur, targets = pos[v].copy(), []
+    for _ in range(frames):
+        cur = cur + rng.normal(0, DRAG_STEP, 2).astype(np.float32)
+        targets.append(cur.copy())
+    return v, targets
 
 
 def card_line():
@@ -681,6 +753,153 @@ def device_ms(launch, launches):
     return statistics.median(times), min(times), max(times)
 
 
+class rehearsing:
+    """Within the block, every launch of the strip-reversal kernel runs
+    its plain version instead, and a copy of its arguments is kept in
+    ``self.slabs`` as ``(label, args)``: the slabs a path hands the
+    kernel, found without launching it."""
+
+    def __init__(self, mod):
+        self.mod = mod
+        self.slabs = []
+
+    def __enter__(self):
+        from repro_torch.kernels.strip_reversal import (
+            strip_reversal_rows_plain)
+        self.launch = self.mod._launch
+
+        def plain(yl, yr, theta, v, u, valid, ideal, with_angle):
+            args = [t.clone() for t in (yl, yr, theta, v, u, valid)]
+            self.slabs.append((f"(f) launch {len(self.slabs)}", args))
+            return strip_reversal_rows_plain(*args, ideal=ideal,
+                                             with_angle=with_angle)
+        self.mod._launch = plain
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._launch = self.launch
+
+
+def garbage_slab(args):
+    """A copy of a dirty-strip slab with its invalid slots filled with
+    values a sweep must never read (NaN, +-inf, huge ordinates, endpoint
+    ids of valid slots) and its last row emptied: the kernel must count
+    0 there and the same as on ``args`` elsewhere."""
+    import torch
+    yl, yr, th, v, u, ok = [t.clone() for t in args]
+    ok[-1] = False
+    bad = ~ok
+    junk = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30],
+                        device=yl.device)
+    pick = torch.arange(bad.numel(), device=yl.device).reshape(bad.shape) % 4
+    for t in (yl, yr, th):
+        t[bad] = junk[pick][bad]
+    v[bad] = v[0, 0].clone()
+    u[bad] = u[0, 0].clone()
+    return [yl, yr, th, v, u, ok]
+
+
+def drag_path(cfg, pos, edges, *, scratch=True):
+    """Phase (f): register ``pos``, drag :func:`drag_moves`' vertex for
+    ``DRAG_FRAMES`` frames through ``EvalSession.update`` (each frame's
+    counters, launches and, with ``scratch``, a from-scratch evaluation
+    of the moved layout), replay the first ``DRAG_FRONT`` frames through
+    ``Evaluator(cfg)``, then move the extremal vertex to force a
+    fallback."""
+    import numpy as np
+    from repro_torch.api import Evaluator
+    from repro_torch.core import grid as gridlib
+    from repro_torch.kernels.strip_reversal import strip_reversal_rows
+    from repro_torch.launch.session import EvalSession
+    v, targets = drag_moves(pos)
+    sess = EvalSession(cfg, update_dirty_threshold=1.0)
+    first = sess.register_layout("drag", pos, edges)
+    cur = np.array(pos, copy=True)
+    frames = []
+    for tgt in targets:
+        before = sess.stats
+        gridlib.reset_call_counts()
+        launched = strip_reversal_rows.LAUNCHES
+        got = sess.update("drag", [v], [tgt])
+        after = sess.stats
+        frame = dict(
+            got=got, launches=strip_reversal_rows.LAUNCHES - launched,
+            counts=dict(gridlib.CALL_COUNTS),
+            hits=after["delta_hits"] - before["delta_hits"],
+            fallbacks=after["delta_fallbacks"] - before["delta_fallbacks"])
+        cur[v] = tgt
+        if scratch:
+            frame["scratch"] = sess.evaluate(cur, edges)
+        frames.append(frame)
+    front_ev = Evaluator(cfg)
+    front_ev.register_layout("drag", pos, edges)
+    front = [front_ev.update("drag", [v], [t])
+             for t in targets[:DRAG_FRONT]]
+    u = int(np.argmax(cur[:, 0]))
+    tgt = cur[u] + np.float32([DRAG_FALLBACK_STEP, 0.0])
+    before = sess.stats
+    fallback = sess.update("drag", [u], [tgt])
+    after = sess.stats
+    cur[u] = tgt
+    out = dict(vertex=v, first=first, frames=frames, front=front,
+               fallback=fallback, final=cur, session=sess,
+               fallback_counted=(after["delta_fallbacks"]
+                                 - before["delta_fallbacks"],
+                                 after["delta_hits"] - before["delta_hits"]))
+    if scratch:
+        out["fallback_scratch"] = sess.evaluate(cur, edges)
+    return out
+
+
+def same_scores(label, got, want):
+    """Two score records: integers equal, floats at rtol :data:`RTOL`."""
+    for f in INT_FIELDS:
+        check(int(getattr(got, f)) == int(getattr(want, f)),
+              f"{label}: {f} = {int(getattr(got, f))}, want "
+              f"{int(getattr(want, f))}")
+    for f in FLOAT_FIELDS:
+        g, w = float(getattr(got, f)), float(getattr(want, f))
+        check(abs(g - w) <= RTOL * abs(w),
+              f"{label}: {f} = {g!r}, want {w!r} (rtol {RTOL})")
+
+
+def check_drag(drag):
+    """(f)'s checks (see the module docstring)."""
+    idle = {"strip_builds": 0, "reversal_sweeps": 0, "cell_builds": 0,
+            "vertex_sorts": 0, "halo_exchanges": 0}
+    frames = drag["frames"]
+    check(len(frames) == DRAG_FRAMES, f"(f) {len(frames)} frames")
+    for i, fr in enumerate(frames):
+        got = fr["got"]
+        label = f"(f) frame {i}"
+        check(got.flags == {"incremental": True},
+              f"{label}: flags {got.flags}, want the delta path")
+        check((fr["hits"], fr["fallbacks"]) == (1, 0),
+              f"{label}: delta_hits +{fr['hits']}, delta_fallbacks "
+              f"+{fr['fallbacks']}")
+        check(fr["counts"] == idle, f"{label}: built {fr['counts']}")
+        check(fr["launches"] == 2, f"{label}: strip_reversal launched "
+                                   f"{fr['launches']} times, want 2")
+        check(got.overflow == 0, f"{label}: overflow {got.overflow}")
+        same_scores(f"{label} vs from scratch", got, fr["scratch"])
+    check_scores("(f) last frame", frames[-1]["got"],
+                 DRAG_REFERENCE["update"])
+    check_scores("(f) last frame from scratch", frames[-1]["scratch"],
+                 DRAG_REFERENCE["scratch"])
+    for i, got in enumerate(drag["front"]):
+        check(got.flags == {"incremental": True},
+              f"(f) front door frame {i}: flags {got.flags}")
+        same_scores(f"(f) front door frame {i}", got, frames[i]["got"])
+    fb = drag["fallback"]
+    check(drag["fallback_counted"] == (1, 0)
+          and not (fb.flags or {}).get("incremental"),
+          f"(f) extremal move: (fallbacks, hits) "
+          f"{drag['fallback_counted']}, flags {fb.flags}")
+    check(fb.overflow == 0, f"(f) fallback overflow {fb.overflow}")
+    same_scores("(f) fallback vs from scratch", fb,
+                drag["fallback_scratch"])
+
+
 class recording_launches:
     """Within the block, every kernel launch through the listed kernel
     modules appends ``(kernel, shape of its first argument)``
@@ -853,6 +1072,72 @@ def run_drills(cfg, reqs, clean):
     return done
 
 
+def sync_sites(call):
+    """The synchronizing CUDA calls of ``call()``, each as the innermost
+    ``file:line`` of this checkout on the Python stack
+    (``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import traceback
+    import warnings
+    import torch
+    sites, inside = [], []
+
+    def show(message, category, filename, lineno, *rest):
+        if not inside or "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if str(ROOT) in f.filename]
+        f = ours[-1] if ours else traceback.extract_stack()[-2]
+        sites.append(f"{Path(f.filename).name}:{f.lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        inside.append(True)
+        try:
+            call()
+        finally:
+            inside.clear()
+            torch.cuda.set_sync_debug_mode("default")
+    return sites
+
+
+def time_drag(cfg, pos, edges):
+    """Phase 4 for (f): ``DRAG_REPLAYS`` replays of the drag, each on a
+    fresh session: ``register_layout``, its priming alone, every frame's
+    ``update`` (host clock: the call returns host scores), then a warm
+    full ``sess.evaluate`` of the dragged layout, and the synchronizing
+    CUDA calls of one frame (``file:line`` of the Python caller)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.session import EvalSession
+    v, targets = drag_moves(pos)
+    out = dict(register=[], prime=[], frames=[], syncs=[])
+    for replay in range(DRAG_REPLAYS):
+        sess = EvalSession(cfg, update_dirty_threshold=1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.register_layout("drag", pos, edges)
+        torch.cuda.synchronize()
+        out["register"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        sess._prime_layout(sess._layouts["drag"])
+        torch.cuda.synchronize()
+        out["prime"].append((time.perf_counter() - t0) * 1e3)
+        for i, tgt in enumerate(targets):
+            if replay == 0 and i == 1:
+                out["syncs"] = sync_sites(
+                    lambda: sess.update("drag", [v], [tgt]))
+                continue
+            t0 = time.perf_counter()
+            sess.update("drag", [v], [tgt])
+            out["frames"].append((time.perf_counter() - t0) * 1e3)
+    cur = np.array(pos, copy=True)
+    cur[v] = targets[-1]
+    out["evaluate"] = cuda_ms(lambda: sess.evaluate(cur, edges))
+    return out
+
+
 def occlusion_args(pos_p, n_valid, dev):
     """The occlusion-pair kernel's padded x, y and valid arrays of a padded
     layout, as ``ops.occlusion_count_op`` builds them."""
@@ -953,9 +1238,22 @@ def main() -> int:
         "e4": [item for width in (8, 4, 2, 1) for item in reversal_slabs(
             dplan, dbatch_p[:width], dedges_p, dedges.shape[0], dev)],
     }
+    # (f): every slab the drag hands the kernel, from a rehearsal of the
+    # drag on the plain version (the from-scratch evaluations left out:
+    # their slabs are (a)'s)
+    t0 = time.perf_counter()
+    with rehearsing(strip_reversal_mod) as rehearsal:
+        drag_path(cfg, pos, edges, scratch=False)
+    slabs["f"] = rehearsal.slabs
+    f_shapes = Counter(tuple(args[0].shape) for _, args in slabs["f"])
+    print(f"shape (f) strip_reversal: {dict(f_shapes)} (slabs per shape "
+          f"in one drag; rehearsal {time.perf_counter() - t0:.2f} s)",
+          flush=True)
     occ_x, occ_y, occ_ok = occlusion_args(pos_p, n_v, dev)
     n_pad = occ_x.shape[0]
     for path, items in slabs.items():
+        if path == "f":
+            continue
         for label, args in items:
             per_row = args[5].sum(dim=1, dtype=torch.float64)
             print(f"shape ({path}) strip_reversal {label}: "
@@ -987,6 +1285,12 @@ def main() -> int:
                                                     args, ideal))
             rev_checked.setdefault(tuple(args[0].shape),
                                    (f"({path}) {label}", args))
+    # (f)'s dirty-strip slabs again, their invalid slots full of garbage
+    # and one row emptied
+    for label, args in slabs["f"]:
+        if args[0].shape[0] < N_STRIPS:
+            rev_err = max(rev_err, compare_reversal(
+                f"{label} garbage", garbage_slab(args), ideal))
     rev_err = max(rev_err, compare_reversal("adversarial",
                                             adversarial_slab(dev), ideal))
     for label, args in masked_slabs(dev).items():
@@ -1242,6 +1546,25 @@ def main() -> int:
           f"reference constants (ints exact, floats rtol {RTOL})",
           flush=True)
 
+    # (f) the incremental path: a drag at full width
+    check(DRAG_REFERENCE is not None, "(f) DRAG_REFERENCE is not set")
+    with recording_launches(*kernel_mods) as rec:
+        drag = run_counted("f", rec, lambda: drag_path(cfg, pos, edges))
+    check_drag(drag)
+    f_rows = Counter(shape[0] for k, shape in seen_shapes["f"]
+                     if k == "strip_reversal")
+    check(sub_launches["f"][1:] == (0, 0, 0),
+          f"(f) launched {sub_launches['f']}")
+    print(f"launches in (f) (strip_reversal, occlusion_pairs, "
+          f"segment_crossing, crossing_angle_sum): {sub_launches['f']}; "
+          f"strip_reversal rows per launch: {dict(f_rows)}", flush=True)
+    print(f"(f) vertex {drag['vertex']}, last frame {drag['frames'][-1]['got']}")
+    print(f"(f) session stats: { {k: drag['session'].stats[k] for k in ('updates', 'delta_hits', 'delta_fallbacks')} }")
+    print(f"incremental path: ok, {DRAG_FRAMES} frames on the delta path, "
+          f"equal to from-scratch evaluations and to the JAX reference "
+          f"constants (ints exact, floats rtol {RTOL}); the front door and "
+          f"the forced fallback right", flush=True)
+
     # every launched shape was checked in phase 2
     launched = Counter(item for shapes in seen_shapes.values()
                        for item in shapes)
@@ -1268,6 +1591,7 @@ def main() -> int:
     path_ms["e2"] = cuda_ms(lambda: kserver.evaluate_batch(reqs))
     path_ms["e3"] = cuda_ms(lambda: xserver.evaluate(epos, eedges))
     path_ms["e5"] = cuda_ms(enhanced)
+    drag_times = time_drag(cfg, pos, edges)
     for k, label in (("a", "evaluate fused"), ("b", f"evaluate_batch B={BATCH}"),
                      ("c", "evaluate kernels"),
                      ("d0", "evaluate_exact use_kernels=False"),
@@ -1278,6 +1602,23 @@ def main() -> int:
                      ("e5", "enhanced E_c + E_ca + N_c")):
         print(f"time ({k}) {label}: {path_ms[k]:.3f} ms "
               f"(median of {REPEATS}, CUDA events) on {card}", flush=True)
+
+    t = drag_times
+    frame_ms = sorted(t["frames"])
+    p95 = frame_ms[min(len(frame_ms) - 1,
+                       int(0.95 * (len(frame_ms) - 1) + 0.5))]
+    print(f"time (f) update, one dragged frame: median "
+          f"{statistics.median(frame_ms):.3f} ms, p95 {p95:.3f} ms, min "
+          f"{frame_ms[0]:.3f}, max {frame_ms[-1]:.3f} ({len(frame_ms)} "
+          f"frames of {DRAG_REPLAYS} replays, host clock) on {card}",
+          flush=True)
+    print(f"time (f) register_layout: {statistics.median(t['register']):.3f} "
+          f"ms, of which priming {statistics.median(t['prime']):.3f} ms "
+          f"(medians of {DRAG_REPLAYS}, host clock); warm full "
+          f"sess.evaluate of the dragged layout {t['evaluate']:.3f} ms "
+          f"(median of {REPEATS}, CUDA events) on {card}", flush=True)
+    print(f"(f) synchronizing CUDA calls in one frame: {len(t['syncs'])} "
+          f"{dict(Counter(t['syncs']))}", flush=True)
 
     def time_kernel(name, label, shape, launch, launches, wrapper, plain,
                     bound_and_by, plain_repeats=REPEATS, note=""):
@@ -1394,7 +1735,7 @@ def main() -> int:
              max_abs_err=angle_err, **angle, library_ms=None),
     ]
     print("kernel times are summed over every launch of one pass of "
-          "(a)-(e); launches are counted in that pass; ms is the kernel "
+          "(a)-(f); launches are counted in that pass; ms is the kernel "
           "alone on the device (median), wrapper_ms the wrapper's call",
           flush=True)
     print(json.dumps({"kernels": kernels}))

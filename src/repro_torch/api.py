@@ -14,11 +14,12 @@ Backends served: ``"fused"`` (plan-cached session, shape-bucketed),
 exact all-pairs occlusion kernel).  ``"distributed"``,
 ``"graph_sharded"`` and ``precision="bfloat16"`` are accepted by
 :class:`EvalConfig` (its digest needs them) but raise
-``NotImplementedError`` here, as do ``register_layout`` / ``update`` /
-``search``: they are still to port.  :func:`evaluator_for` is the
-process-wide evaluator cache the deprecated shims map onto.  :func:`evaluate_exact` is the exact
-all-pairs reference path (paper S3.1), the ground truth of the enhanced
-metrics.
+``NotImplementedError`` here; ``search`` is not ported yet.
+:meth:`Evaluator.register_layout` / :meth:`Evaluator.update` serve
+dynamic layouts (incremental on ``"fused"``).  :func:`evaluator_for` is
+the process-wide evaluator cache the deprecated shims map onto.
+:func:`evaluate_exact` is the exact all-pairs reference path (paper
+S3.1), the ground truth of the enhanced metrics.
 
 **Device rule**: ``Evaluator(config, device=None)`` and
 ``evaluate_exact(..., device=None)`` run on CUDA and raise when no CUDA
@@ -76,6 +77,13 @@ class Evaluator:
       ``backend="eager"`` plans per call.
     * :meth:`evaluate_batch` -- ``(B, V, 2)`` candidate layouts of ONE
       graph in one batched pass -> batched host scores (``.unbatch()``).
+    * :meth:`register_layout` / :meth:`update` -- dynamic layouts: score
+      once, then re-score small vertex moves.  ``"fused"`` re-derives only
+      the dirty grid cells and strips (the bound session's resident state,
+      :mod:`repro_torch.core.incremental`; integer metrics equal a
+      from-scratch evaluation); ``"kernels"`` delegates to the session,
+      which re-evaluates every update in full; ``"eager"`` keeps the
+      layout on the host and re-evaluates it in full.
     * :meth:`session` -- a fresh :class:`EvalSession` on the same config
       and device; ``**knobs`` are its serving-policy knobs, the overload
       knobs (``max_queue``, ``default_deadline``, ``dispatch_timeout``,
@@ -84,7 +92,8 @@ class Evaluator:
 
     def __init__(self, config: EvalConfig = None, *, device=None,
                  cache_size: int = 128, vertex_floor: int = 128,
-                 edge_floor: int = 128, max_coalesce: int = 32):
+                 edge_floor: int = 128, max_coalesce: int = 32,
+                 update_dirty_threshold: float = 0.25):
         self.config = config if config is not None else EvalConfig()
         if self.config.backend not in SERVED_BACKENDS:
             raise NotImplementedError(
@@ -99,7 +108,12 @@ class Evaluator:
         self._session_knobs = dict(cache_size=cache_size,
                                    vertex_floor=vertex_floor,
                                    edge_floor=edge_floor,
-                                   max_coalesce=max_coalesce)
+                                   max_coalesce=max_coalesce,
+                                   update_dirty_threshold=update_dirty_threshold)
+        # dynamic layouts on the eager backend: (pos, edges) per layout
+        # id, every update a full re-evaluation (the incremental path
+        # needs the session's resident state)
+        self._layouts = {}
 
     def __repr__(self):
         return f"Evaluator({self.config!r}, device={str(self.device)!r})"
@@ -144,6 +158,51 @@ class Evaluator:
                                    device=self.device, **valid)
         scores = scores_from_result(res, n_v, n_e)
         return scores if flags is None else scores._replace(flags=flags)
+
+    # -- dynamic layouts (incremental re-evaluation) ------------------------
+
+    def register_layout(self, layout_id, pos, edges) -> ReadabilityScores:
+        """Register a dynamic layout for :meth:`update` streams: validate
+        and evaluate ``pos`` once and return its scores.  On the session
+        backends the bound :class:`EvalSession` also primes the resident
+        partials (``"fused"``); on ``"eager"`` the layout is kept on the
+        host and every update is a full re-evaluation."""
+        if self.config.backend in ("fused", "kernels"):
+            return self._bound_session().register_layout(layout_id, pos,
+                                                         edges)
+        scores = self.evaluate(pos, edges)
+        self._layouts[layout_id] = (np.array(pos, np.float32, copy=True),
+                                    np.array(edges, np.int32, copy=True))
+        return scores
+
+    def update(self, layout_id, moved_idx, new_pos) -> ReadabilityScores:
+        """Move ``moved_idx`` of a registered layout to ``new_pos`` and
+        re-score.  Session backends route through
+        :meth:`EvalSession.update` (incremental when the dirty set is
+        small; ``scores.flags["incremental"]`` certifies the path taken);
+        ``"eager"`` re-evaluates in full."""
+        if self.config.backend in ("fused", "kernels"):
+            return self._bound_session().update(layout_id, moved_idx,
+                                                new_pos)
+        if layout_id not in self._layouts:
+            raise KeyError(f"unknown layout_id {layout_id!r}; "
+                           "register_layout() first")
+        pos, edges = self._layouts[layout_id]
+        moved = np.asarray(moved_idx, np.int64).reshape(-1)
+        new_xy = np.asarray(new_pos, np.float32).reshape(-1, 2)
+        if moved.size == 0 or moved.size != new_xy.shape[0]:
+            raise InvalidInputError(
+                "update wants matching non-empty moved_idx / new_pos; "
+                f"got {moved.size} indices, {new_xy.shape[0]} positions")
+        if self.config.validation != "off":
+            if moved.min(initial=0) < 0 or \
+                    moved.max(initial=-1) >= pos.shape[0]:
+                raise InvalidInputError(
+                    f"moved_idx out of range for {pos.shape[0]} vertices")
+            if not np.isfinite(new_xy).all():
+                raise InvalidInputError("non-finite new_pos in update")
+        pos[moved] = new_xy
+        return self.evaluate(pos, edges)
 
     def evaluate_batch(self, batch_pos, edges, *,
                        plan: engine.ReadabilityPlan = None

@@ -18,6 +18,8 @@ _EXPORTS = {
     "engine": ("EngineResult", "ReadabilityPlan", "evaluate_layouts",
                "evaluate_once", "evaluate_planned", "plan_readability",
                "replan_on_overflow"),
+    "incremental": ("ResidentState", "ResidentStrip", "delta_probe",
+                    "evaluate_delta", "prime_state"),
     "keys": ("EvalConfig", "pow2_bucket", "topology_hash"),
     "metrics": ("ALL_METRICS", "ReadabilityReport", "evaluate_exact",
                 "evaluate_layout", "report_from_result",

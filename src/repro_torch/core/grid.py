@@ -98,8 +98,19 @@ def _scalar(value, like):
     """``value`` as a 0-dim tensor of ``like``'s dtype on its device.
 
     Used for every divisor: CUDA turns division by a host scalar into a
-    reciprocal multiply, which is not the reference's true division."""
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    reciprocal multiply, which is not the reference's true division.
+    Made by a fill on the device: a copy from the host would wait for
+    the device's queue."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
+def _to_device(array, dev):
+    """A host array on ``dev``; on CUDA through pinned memory, so that the
+    copy does not wait for the device's queue."""
+    t = torch.from_numpy(array)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
 
 
 def _index(x):
@@ -184,8 +195,8 @@ def gather_ragged_buckets(keys, n_buckets: int, bucket_offset, bucket_cap,
     slot_bucket = np.repeat(by_off, bucket_cap[by_off])
     starts = np.repeat(bucket_offset[by_off], bucket_cap[by_off])
     slot_j = np.arange(total, dtype=np.int64) - starts
-    slot_bucket = torch.from_numpy(slot_bucket).to(dev)
-    slot_j = torch.from_numpy(slot_j).to(dev)
+    slot_bucket = _to_device(slot_bucket, dev)
+    slot_j = _to_device(slot_j, dev)
 
     B, M = keys.shape
     if valid is None:

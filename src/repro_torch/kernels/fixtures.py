@@ -18,6 +18,11 @@ versions on the same inputs.
 * :func:`occlusion_case` / :data:`OCCLUSION_CASES` -- vertex layouts
   against the occlusion kernel's tiles; :func:`boundary_points` -- pairs
   at exactly ``d2 == (2r)^2``.
+* :func:`parity_family` / :data:`PARITY_FAMILIES` -- the layout families
+  of the reference's parity matrix (``tests/test_parity_matrix.py``),
+  rebuilt here without JAX so that the card tests can use them;
+  :func:`near_parallel_layouts` -- its ``collinear`` family jittered into
+  near-parallel crossings.
 """
 
 from __future__ import annotations
@@ -351,3 +356,82 @@ def occlusion_case(name, radius):
 
 
 OCCLUSION_CASES = ["last_tile_single", "middle_tile_invalid", "one_tile"]
+
+
+# ---------------------------------------------------------------------------
+# the parity-matrix layout families
+# ---------------------------------------------------------------------------
+
+PARITY_FAMILIES = ("random", "grid", "cluster", "collinear", "duplicate")
+
+
+def _random_edges(rng, n_vertices, n_edges):
+    edges = set()
+    while len(edges) < n_edges:
+        v, u = rng.integers(0, n_vertices, 2)
+        if v != u:
+            edges.add((min(v, u), max(v, u)))
+    return np.array(sorted(edges), dtype=np.int32)
+
+
+def parity_family(kind):
+    """``(pos, edges)`` of the parity matrix's family ``kind``, drawn from
+    the same ``default_rng(7)`` stream: random points, an exact lattice
+    with slopes {0, inf, +-1}, four clusters, vertices on y = x (every
+    segment pair tied) and 40 positions repeated 4 times."""
+    rng = np.random.default_rng(7)
+    if kind == "random":
+        n = 160
+        pos = rng.uniform(0, 100, size=(n, 2)).astype(np.float32)
+    elif kind == "grid":
+        side = 12
+        n = side * side
+        xs, ys = np.meshgrid(np.arange(side), np.arange(side))
+        pos = np.stack([xs.ravel(), ys.ravel()],
+                       axis=1).astype(np.float32) * 6.0
+        idx = lambda ix, iy: iy * side + ix  # noqa: E731
+        e = []
+        for ix in range(side):
+            for iy in range(side):
+                if ix + 1 < side:
+                    e.append((idx(ix, iy), idx(ix + 1, iy)))
+                if iy + 1 < side:
+                    e.append((idx(ix, iy), idx(ix, iy + 1)))
+        for _ in range(n):
+            ix, iy = rng.integers(0, side, 2)
+            k = int(rng.integers(1, side))
+            sx, sy = (1, 1) if rng.random() < 0.5 else (1, -1)
+            jx, jy = ix + sx * k, iy + sy * k
+            if 0 <= jx < side and 0 <= jy < side:
+                a, b = idx(ix, iy), idx(jx, jy)
+                if a != b:
+                    e.append((min(a, b), max(a, b)))
+        return pos, np.array(sorted(set(e)), np.int32)
+    elif kind == "cluster":
+        centers = rng.uniform(0, 100, size=(4, 2))
+        pts = [c + rng.normal(0, 4.0, size=(40, 2)) for c in centers]
+        pos = np.concatenate(pts).astype(np.float32)
+        n = pos.shape[0]
+    elif kind == "collinear":
+        n = 128
+        x = np.arange(n, dtype=np.float32)
+        pos = np.stack([x, x], axis=1)
+    elif kind == "duplicate":
+        base = rng.integers(0, 60, size=(40, 2)).astype(np.float32)
+        pos = np.repeat(base, 4, axis=0)
+        n = pos.shape[0]
+    else:
+        raise KeyError(kind)
+    return pos, _random_edges(rng, n, 2 * n)
+
+
+def near_parallel_layouts():
+    """``((2, 128, 2) batch, edges)``: the ``collinear`` family jittered by
+    N(0, 0.02) twice from ``default_rng(3)``.  Thousands of crossings
+    between near-parallel segments, where E_ca = 1 - dev_sum / count
+    cancels (a mean deviation of about 0.9991)."""
+    pos, edges = parity_family("collinear")
+    rng = np.random.default_rng(3)
+    batch = np.stack([pos + rng.normal(0, 0.02, pos.shape)
+                      for _ in range(2)]).astype(np.float32)
+    return batch, edges

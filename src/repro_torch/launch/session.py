@@ -46,22 +46,30 @@ small number of engine dispatches::
   at most ``max_replan_retries`` times; a result that still overflows
   surfaces ``CapacityError`` (strict) or a ``saturated`` flag (sanitize).
 
+**Dynamic layouts**: :meth:`EvalSession.register_layout` scores a layout
+and, on ``backend="fused"`` with flat strips, primes its device-resident
+partials (:mod:`repro_torch.core.incremental`); :meth:`EvalSession.update`
+then re-scores small vertex moves from the dirty cells and strips alone
+(``updates`` / ``delta_hits`` / ``delta_fallbacks``), and every case the
+delta cannot prove sound falls back to a full re-evaluation.
+
 Not ported yet: the mesh rungs of the degradation ladder (``mesh=``,
 ``backend="graph_sharded"``, the breaker's ``probe_interval``; ROADMAP
-module item 10) and the incremental ``register_layout`` / ``update`` path
-(its ``update_dirty_threshold``; item 8).  They raise
-``NotImplementedError``; their counters are present and stay 0, and the
-breaker stays closed.  PyTorch runs eagerly, so ``traces`` stays 0 too.
+queue 1 item 4).  They raise ``NotImplementedError``; their counters are
+present and stay 0, and the breaker stays closed.  PyTorch runs eagerly,
+so ``traces`` stays 0 too.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from collections import Counter, OrderedDict
 
 import numpy as np
+import torch
 
-from repro_torch.core import engine
+from repro_torch.core import engine, incremental
 from repro_torch.core.keys import (EvalConfig, pow2_bucket, topology_hash,
                                    warn_once)
 from repro_torch.core.scores import (error_scores, scores_from_batch,
@@ -131,10 +139,12 @@ class EvalSession:
     * ``default_deadline`` -- seconds-from-arrival budget of every request
       that does not carry its own;
     * ``dispatch_timeout`` -- wall-clock guard on each engine dispatch
-      even when requests carry no deadline.
+      even when requests carry no deadline;
+    * ``update_dirty_threshold`` -- an :meth:`update` falls back to a full
+      re-evaluation when it dirties more than this fraction of the
+      vertices, the grid cells or either orientation's strips.
 
-    ``mesh=`` and ``probe_interval=`` (mesh serving, ROADMAP module item
-    10) and ``update_dirty_threshold=`` (item 8) raise
+    ``mesh=`` and ``probe_interval=`` (mesh serving) raise
     ``NotImplementedError`` when given.
 
     The old per-knob evaluation kwargs (``radius=``, ``n_strips=``, ...)
@@ -148,7 +158,7 @@ class EvalSession:
                  growth_ceiling: float = 4.0, max_queue: int = None,
                  max_queue_cost: int = None, default_deadline: float = None,
                  dispatch_timeout: float = None, probe_interval: int = None,
-                 update_dirty_threshold: float = None, mesh=None,
+                 update_dirty_threshold: float = 0.25, mesh=None,
                  **legacy_kwargs):
         if legacy_kwargs:
             if config is not None:
@@ -173,10 +183,6 @@ class EvalSession:
                 "mesh serving (mesh=, backend='graph_sharded', the "
                 "breaker's probe_interval) is not ported to repro_torch "
                 "yet (ROADMAP module item 10)")
-        if update_dirty_threshold is not None:
-            raise NotImplementedError(
-                "update_dirty_threshold (incremental re-evaluation) is not "
-                "ported to repro_torch yet (ROADMAP module item 8)")
         if self.config.precision != "float32":
             raise NotImplementedError(
                 f"precision={self.config.precision!r} is not ported yet")
@@ -194,6 +200,14 @@ class EvalSession:
                                  else float(default_deadline))
         self.dispatch_timeout = (None if dispatch_timeout is None
                                  else float(dispatch_timeout))
+        # incremental updates: past this dirty fraction of the vertices,
+        # the grid cells or either orientation's strips the delta's
+        # dirty-row rebuild stops being cheaper than the full engine
+        self.update_dirty_threshold = float(update_dirty_threshold)
+        # registered dynamic layouts (update targets): host records and
+        # device-resident partials, each guarded by its own lock
+        self._layouts = {}
+        self._layouts_lock = threading.Lock()
         # with no mesh rung nothing records to the breaker: it stays
         # closed and feeds the stats/health() keys
         self.breaker = CircuitBreaker()
@@ -623,14 +637,216 @@ class EvalSession:
                     remaining = self._reap(remaining, out)
         return out
 
-    # -- dynamic layouts (ROADMAP module item 8) ------------------------------
+    # -- dynamic layouts (incremental re-evaluation) --------------------------
 
     def register_layout(self, layout_id, pos, edges):
-        raise NotImplementedError(
-            "register_layout / update (incremental re-evaluation) are not "
-            "ported to repro_torch yet (ROADMAP module item 8)")
+        """Register a dynamic layout for :meth:`update` and return its
+        full from-scratch scores.
+
+        The layout is evaluated through the normal serving path (plan
+        cache, validation, counters), then -- on the ``"fused"`` backend
+        with a flat (untiered) plan -- its device-resident partial state
+        is primed so that later small moves take the incremental path
+        (:mod:`repro_torch.core.incremental`).  Other backends register
+        too but serve every update as a full re-evaluation."""
+        pos_v, edges_v, _ = validate_request(
+            pos, edges, mode=self.config.validation, index=0)
+        scores = self.evaluate(pos_v, edges_v)
+        pos_v = np.asarray(pos_v, np.float32)
+        edges_v = np.asarray(edges_v, np.int32)
+        n_v, n_e = pos_v.shape[0], edges_v.shape[0]
+        vb = pow2_bucket(n_v, self.vertex_floor)
+        eb = pow2_bucket(n_e, self.edge_floor)
+        pos_p = np.full((vb, 2), PARK, np.float32)
+        pos_p[:n_v] = pos_v
+        edges_p = np.zeros((eb, 2), np.int32)
+        edges_p[:n_e] = edges_v
+        lay = dict(key=(topology_hash(edges_v, n_v), vb, eb, self.config),
+                   pos=pos_v.copy(), edges=edges_v, pos_p=pos_p,
+                   edges_p=edges_p, n_v=n_v, n_e=n_e, vb=vb, eb=eb,
+                   lock=threading.Lock(), plan_r=None, state=None,
+                   edges_d=None, vert_cell=None, strips=None)
+        self._prime_layout(lay)
+        with self._layouts_lock:
+            self._layouts[layout_id] = lay
+        return scores
+
+    def _prime_layout(self, lay) -> None:
+        """Build (or rebuild) the layout's device-resident partials.
+        Leaves ``state=None`` -- updates then fall back to a full
+        re-evaluation -- when the backend is not the plain fused engine,
+        the plan is tiered, or the prime itself overflowed."""
+        lay["state"] = None
+        if self.config.backend != "fused":
+            return
+        plan = self._plan_for(lay["key"], lay)
+        if any(plan.strip_tiers):
+            # tiered strip layouts permute bucket offsets by occupancy;
+            # the resident tables assume the flat layout (sessions plan
+            # flat by default, so this guards an explicit override)
+            return
+        inc_nbr, inc_deg, deg_cap = incremental.incidence_table(
+            lay["edges"], lay["n_v"], lay["vb"])
+        plan_r = dataclasses.replace(plan, resident=("delta", deg_cap))
+        if lay["edges_d"] is None:
+            lay["edges_d"] = torch.from_numpy(lay["edges_p"]).to(self.device)
+        state, aux = incremental.prime_state(
+            plan_r, lay["pos_p"], lay["edges_d"], lay["n_v"], lay["n_e"],
+            inc_nbr, inc_deg, device=self.device)
+        if aux["overflow"] > 0:
+            return
+        lay["plan_r"] = plan_r
+        lay["state"] = state
+        # host mirrors the delta planner reads, and writes on commit
+        lay["vert_cell"] = np.array(aux["vert_cell"])
+        lay["strips"] = [[np.array(s[0]), np.array(s[1]), s[2], s[3], s[4]]
+                         for s in aux["strips"]]
 
     def update(self, layout_id, moved_idx, new_pos):
-        raise NotImplementedError(
-            "register_layout / update (incremental re-evaluation) are not "
-            "ported to repro_torch yet (ROADMAP module item 8)")
+        """Move a few vertices of a registered layout and re-score it.
+
+        Takes the incremental path when the resident state is live and
+        the move stays small (dirty fractions under
+        ``update_dirty_threshold``, strip domain unchanged, no bucket
+        overflow); integer metrics equal a from-scratch evaluation either
+        way, and incremental results carry ``flags={"incremental":
+        True}``.  Every other case counts a ``delta_fallbacks`` and
+        re-evaluates in full through the serving path (then re-primes).
+        Raises ``KeyError`` for an unknown ``layout_id`` and
+        :class:`InvalidInputError` (``reason="bad_update"``) for bad
+        indices or non-finite coordinates (unless ``validation="off"``)."""
+        with self._layouts_lock:
+            lay = self._layouts.get(layout_id)
+        if lay is None:
+            raise KeyError(f"unknown layout_id {layout_id!r}; "
+                           "register_layout() it first")
+        moved = np.asarray(moved_idx, np.int64).ravel()
+        new = np.asarray(new_pos, np.float32).reshape(-1, 2)
+        if self.config.validation != "off":
+            if len(moved) == 0 or len(moved) != len(new):
+                raise InvalidInputError(
+                    f"moved_idx ({len(moved)}) and new_pos ({len(new)}) "
+                    "must be equal-length and non-empty",
+                    reason="bad_update")
+            if (moved < 0).any() or (moved >= lay["n_v"]).any():
+                raise InvalidInputError(
+                    "moved_idx out of range for a layout with "
+                    f"{lay['n_v']} vertices", reason="bad_update")
+            if not np.isfinite(new).all():
+                raise InvalidInputError(
+                    "new_pos contains non-finite coordinates",
+                    reason="bad_update")
+        with lay["lock"]:
+            self._stats["updates"] += 1
+            # duplicate indices: the last write wins, as in a drag
+            uniq, ridx = np.unique(moved[::-1], return_index=True)
+            new_u = new[len(moved) - 1 - ridx]
+            scores = self._try_delta(lay, uniq, new_u)
+            if scores is not None:
+                self._stats["delta_hits"] += 1
+                flags = dict(scores.flags or {})
+                flags["incremental"] = True
+                return scores._replace(flags=flags)
+            # fallback: full re-evaluation through the serving path, then
+            # re-prime the resident state from the new positions
+            self._stats["delta_fallbacks"] += 1
+            lay["pos"][uniq] = new_u
+            lay["pos_p"][uniq] = new_u
+            scores = self.evaluate(lay["pos"], lay["edges"])
+            self._prime_layout(lay)
+            return scores
+
+    def _try_delta(self, lay, moved, new_xy):
+        """Attempt the incremental path; return host scores, or None to
+        fall back.  ``moved`` is sorted-unique with ``new_xy`` aligned.
+        Catches nothing: a failing kernel raises, it never turns into a
+        fallback."""
+        state, plan_r = lay["state"], lay["plan_r"]
+        if state is None:
+            return None
+        thr = self.update_dirty_threshold
+        n_v, n_e = lay["n_v"], lay["n_e"]
+        vb, eb = lay["vb"], lay["eb"]
+        if len(moved) > thr * n_v:
+            return None
+        moved_p = incremental.pad_ids(moved, vb)
+        new_xy_p = np.zeros((len(moved_p), 2), np.float32)
+        new_xy_p[:len(moved)] = new_xy
+        aff = incremental.affected_edges(lay["edges"], moved, n_v)
+        aff_p = incremental.pad_ids(aff, eb, floor=16)
+        probe = incremental.delta_probe(
+            plan_r, state, lay["edges_d"], n_e, moved_p, new_xy_p, aff_p,
+            device=self.device)
+
+        dirty_strips, k = [], len(moved)
+        for axis_i, (lo2, hi2, sfn, sln, nsn) in enumerate(probe["axes"]):
+            sfo, slo, total, lo, hi = lay["strips"][axis_i]
+            if lo2 != lo or hi2 != hi:
+                # an extremal vertex moved: every strip boundary shifts
+                return None
+            ds, old_segs, new_segs = [], 0, 0
+            for j, e in enumerate(aff_p):
+                if e >= eb:
+                    continue
+                if slo[e] >= sfo[e]:
+                    ds.extend(range(int(sfo[e]), int(slo[e]) + 1))
+                    old_segs += int(slo[e]) - int(sfo[e]) + 1
+                if sln[j] >= sfn[j]:
+                    ds.extend(range(int(sfn[j]), int(sln[j]) + 1))
+                    new_segs += int(sln[j]) - int(sfn[j]) + 1
+            max_segments = plan_r.strip_plans[axis_i][0]
+            if total - old_segs + new_segs > max_segments:
+                return None          # the delta would outgrow the plan
+            ds = np.unique(np.asarray(ds, np.int64))
+            if len(ds) > thr * plan_r.n_strips:
+                return None
+            dirty_strips.append(
+                incremental.pad_ids(ds if len(ds) else [plan_r.n_strips],
+                                    plan_r.n_strips))
+
+        dc_p = own_p = np.zeros(0, np.int32)
+        if lay["vert_cell"] is not None and \
+                "node_occlusion" in plan_r.metrics:
+            n_cells = plan_r.grid_nx * plan_r.grid_ny
+            dirty = np.unique(np.concatenate(
+                [lay["vert_cell"][moved], probe["new_cid"][:k]]))
+            if len(dirty) > thr * n_cells:
+                return None
+            dc_p = incremental.pad_ids(dirty, n_cells)
+            own_p = incremental.pad_ids(
+                incremental.owner_cells(dirty, plan_r.grid_nx,
+                                        plan_r.grid_ny),
+                n_cells, floor=16)
+
+        dirty_ma = np.unique(np.concatenate(
+            [moved, lay["edges"][aff].reshape(-1).astype(np.int64)]))
+        dv_p = incremental.pad_ids(dirty_ma, vb, floor=16)
+
+        res, new_state = incremental.evaluate_delta(
+            plan_r, state, lay["edges_d"], n_e, moved_p, new_xy_p, aff_p,
+            dc_p, own_p, tuple(dirty_strips), dv_p, device=self.device)
+        scores = scores_from_result(res, n_v, n_e)
+        if scores.overflow > 0:
+            # bucket overflow or a dirty-set miss in the rebuild:
+            # membership equality is not guaranteed, so never commit
+            return None
+        # commit: the device state and the host mirrors the next probe
+        # reads
+        lay["state"] = new_state
+        lay["pos"][moved] = new_xy
+        lay["pos_p"][moved] = new_xy
+        if lay["vert_cell"] is not None and \
+                "node_occlusion" in plan_r.metrics:
+            lay["vert_cell"][moved] = probe["new_cid"][:k]
+        for axis_i, (lo2, hi2, sfn, sln, nsn) in enumerate(probe["axes"]):
+            rec = lay["strips"][axis_i]
+            sfo, slo, total = rec[0], rec[1], rec[2]
+            live = aff_p < eb
+            old = np.where(slo[aff_p[live]] >= sfo[aff_p[live]],
+                           slo[aff_p[live]] - sfo[aff_p[live]] + 1, 0)
+            newn = np.where(sln[live] >= sfn[live],
+                            sln[live] - sfn[live] + 1, 0)
+            sfo[aff_p[live]] = sfn[live]
+            slo[aff_p[live]] = sln[live]
+            rec[2] = total - int(old.sum()) + int(newn.sum())
+        return scores

@@ -14,6 +14,11 @@ near-ties, and there XLA's CPU ``jit`` contracts multiply-adds into FMAs
 that flip some of them (the port rounds each op, as the reference does
 op by op), so jittered layouts are compared with the reference's eager
 ``evaluate_once``, whose strip build runs op by op.
+
+The near-parallel case (``fixtures.near_parallel_layouts``) pins the
+open E_ca fault of ROADMAP queue 3 against the reference run op by op:
+integers and the deviation sum pass, E_ca's rtol 1e-5 check is a strict
+xfail, and a diagnostic shows that ``atan2`` does not cause it.
 """
 
 import numpy as np
@@ -24,8 +29,11 @@ from repro.core import engine as ref_engine
 from repro.core import grid as ref_grid
 from repro_torch.core import engine as t_engine
 from repro_torch.core import grid as t_grid
+from repro_torch.kernels.fixtures import near_parallel_layouts, parity_family
 from repro_torch.launch.session import PARK
 from test_parity_matrix import FAMILIES, RADIUS, N_STRIPS, make_family
+from test_torch_kernels import (NEAR_PARALLEL_REASON, NEAR_PARALLEL_REFERENCE,
+                                check_near_parallel, near_parallel_scores)
 
 RTOL = 1e-5
 INT_FIELDS = ("node_occlusion", "edge_crossing", "crossing_count_for_angle",
@@ -237,3 +245,112 @@ def test_shared_reversal_formula():
     np.testing.assert_array_equal(gc.numpy(), np.asarray(rc))
     np.testing.assert_allclose(gd.numpy(), np.asarray(rd), rtol=RTOL)
     assert ref_grid.count_dtype() is not None
+
+
+# ---------------------------------------------------------------------------
+# the open E_ca fault: near-parallel crossings (ROADMAP queue 3)
+# ---------------------------------------------------------------------------
+
+NEAR_PARALLEL_BACKENDS = [(b, m) for b in ("fused", "eager", "kernels")
+                          for m in ("single", "batched")]
+
+
+@pytest.mark.parametrize("kind", FAMILIES)
+def test_parity_family_twins(kind):
+    """The JAX-free families of ``repro_torch.kernels.fixtures`` (the card
+    tests use them) are the parity matrix's, and the near-parallel case is
+    its ``collinear`` family jittered by N(0, 0.02) from
+    ``default_rng(3)``."""
+    pos, edges = make_family(kind)
+    tpos, tedges = parity_family(kind)
+    np.testing.assert_array_equal(tpos, pos)
+    np.testing.assert_array_equal(tedges, edges)
+    if kind == "collinear":
+        rng = np.random.default_rng(3)
+        want = np.stack([pos + rng.normal(0, 0.02, pos.shape)
+                         for _ in range(2)]).astype(np.float32)
+        batch, nedges = near_parallel_layouts()
+        np.testing.assert_array_equal(batch, want)
+        np.testing.assert_array_equal(nedges, edges)
+
+
+@pytest.fixture(scope="module")
+def near_parallel():
+    """The near-parallel case; the reference runs op by op (jit disabled)
+    under one flat plan of both layouts."""
+    import jax
+    batch, edges = near_parallel_layouts()
+    plan = ref_engine.plan_readability(batch, edges, radius=RADIUS,
+                                       n_strips=N_STRIPS, tier_strips=False)
+    with jax.disable_jit():
+        ref = [ref_engine.evaluate_planned(plan, b, edges) for b in batch]
+    return batch, edges, plan, ref
+
+
+def test_near_parallel_card_constants(near_parallel):
+    """The reference constants the card tests hold the CUDA sweep to
+    (``test_torch_kernels.NEAR_PARALLEL_REFERENCE``) are the op-by-op
+    reference's values."""
+    *_, ref = near_parallel
+    for r, want in zip(ref, NEAR_PARALLEL_REFERENCE):
+        for f in INT_FIELDS + FLOAT_FIELDS:
+            assert np.asarray(getattr(r, f)).item() == want[f], f
+
+
+@pytest.mark.parametrize("backend,mode", NEAR_PARALLEL_BACKENDS)
+def test_near_parallel_ints_and_deviation_sum(near_parallel, backend, mode):
+    """Integers equal the op-by-op reference, and so does the deviation
+    sum behind E_ca at rtol 1e-5 (it differs by about 1e-7 relative)."""
+    batch, edges, _, ref = near_parallel
+    check_near_parallel(
+        near_parallel_scores(batch, edges, backend, mode, "cpu"), ref)
+
+
+@pytest.mark.xfail(strict=True, reason=NEAR_PARALLEL_REASON)
+@pytest.mark.parametrize("backend,mode", NEAR_PARALLEL_BACKENDS)
+def test_near_parallel_eca(near_parallel, backend, mode):
+    """E_ca itself at the parity bar (rtol 1e-5): it misses by 1.3e-4 and
+    1.6e-4 relative, the open fault of ROADMAP queue 3."""
+    batch, edges, _, ref = near_parallel
+    got = near_parallel_scores(batch, edges, backend, mode, "cpu")
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.edge_crossing_angle,
+                                   r.edge_crossing_angle, rtol=RTOL)
+
+
+def test_near_parallel_gap_is_not_atan2(near_parallel):
+    """The diagnostic: the reference's segment thetas fed to the port's
+    sweep give the port's E_ca bit for bit, so ``atan2`` (one ulp apart on
+    about a quarter of the thetas here) does not account for the gap; the
+    float32 summation order of the deviation terms does."""
+    import jax.numpy as jnp
+    from repro.core.geometry import segment_theta as ref_theta
+    batch, edges, plan, _ = near_parallel
+    tplan = t_engine.plan_from_reference(plan)
+    e = T(edges)
+    for b in batch:
+        p, q = b[edges[:, 0]], b[edges[:, 1]]
+        theta = torch.from_numpy(np.array(ref_theta(
+            jnp.asarray(p[:, 0]), jnp.asarray(p[:, 1]),
+            jnp.asarray(q[:, 0]), jnp.asarray(q[:, 1]))))
+
+        def eca(own_theta):
+            stats = []
+            for axis_i, (axis, (ms, _)) in enumerate(zip(tplan.axes,
+                                                          tplan.strip_plans)):
+                segs = t_grid.build_strip_segments(T(b), e, tplan.n_strips,
+                                                   ms, axis=axis)
+                if not own_theta:
+                    segs = segs._replace(theta=theta[segs.eid])
+                segs = segs._replace(**{f: getattr(segs, f)[None] for f in (
+                    "strip", "yl", "yr", "theta", "v", "u", "valid")})
+                cnt, dsum, drop = t_engine._tiered_strip_stats(
+                    tplan, axis_i, segs, 1, with_angle=True)
+                stats.append((cnt[0], dsum[0], drop[0]))
+            out = {}
+            t_engine._combine(stats, True, True, out)
+            return float(out["edge_crossing_angle"])
+
+        got = t_engine.evaluate_planned(tplan, T(b), e)
+        assert eca(own_theta=True) == float(got.edge_crossing_angle)
+        assert eca(own_theta=False) == eca(own_theta=True)

@@ -28,6 +28,11 @@ confine crossings to the rows of one warp, or give segments angles near
 0 and pi: the kernels find each row's extent, skip empty tiles and test
 the order on the diagonal tiles only, on the device.
 
+* the near-parallel case (the open E_ca fault of ROADMAP queue 3): the
+  CUDA sweep through the front door, held to the reference's constants
+  ``NEAR_PARALLEL_REFERENCE`` on integers and the deviation sum, with
+  E_ca's own rtol 1e-5 check as a strict xfail.
+
 Tolerance: integer counts are equal; deviation sums agree at rtol 1e-5
 (float32 sums in a different order).  The reference is imported inside a
 fixture, so the card tests also run where JAX is not installed:
@@ -53,6 +58,7 @@ from repro_torch.kernels import strip_reversal as t_rev
 from repro_torch.kernels.fixtures import (FIXTURES, OCCLUSION_CASES,
                                           STRIP_SLABS, TILE_LAYOUTS,
                                           WIDE_STRIP_SLABS, boundary_points,
+                                          near_parallel_layouts,
                                           occlusion_case, random_segments,
                                           strip_slab)
 
@@ -454,3 +460,104 @@ def test_crossing_angle_launches_counted_once_per_call(cuda):
                             ideal=DEFAULT_IDEAL)
     torch.cuda.synchronize()
     assert t_ang.crossing_angle_stats.LAUNCHES == before + 4
+
+
+# ---------------------------------------------------------------------------
+# the near-parallel case (the open E_ca fault of ROADMAP queue 3)
+# ---------------------------------------------------------------------------
+
+NEAR_PARALLEL_INTS = ("node_occlusion", "edge_crossing",
+                      "crossing_count_for_angle", "overflow")
+NEAR_PARALLEL_REASON = (
+    "E_ca = 1 - dev_sum / count cancels on near-parallel crossings: the "
+    "mean deviation is ~0.99911, so one float32 ulp of it (1.19e-7) is "
+    "1.3e-4 of E_ca, and the port sums the 4,691 / 4,481 deviation terms "
+    "in another float32 order than the reference (feeding the "
+    "reference's thetas to the port's sweep changes nothing); against a "
+    "float64 sum the reference is the farther from the truth")
+# the JAX reference op by op (jit disabled) on
+# fixtures.near_parallel_layouts() under one flat plan of both layouts
+# (RADIUS 2.0, 32 strips); tests/test_torch_engine.py holds these
+# constants to the reference itself
+NEAR_PARALLEL_REFERENCE = (
+    {"node_occlusion": 253, "edge_crossing": 4691,
+     "crossing_count_for_angle": 4691, "overflow": 0,
+     "minimum_angle": 0.1329270601272583,
+     "edge_length_variation": 0.044808074831962585,
+     "edge_crossing_angle": 0.000888824462890625},
+    {"node_occlusion": 253, "edge_crossing": 4481,
+     "crossing_count_for_angle": 4481, "overflow": 0,
+     "minimum_angle": 0.13293468952178955,
+     "edge_length_variation": 0.0448048859834671,
+     "edge_crossing_angle": 0.0007498860359191895},
+)
+NEAR_PARALLEL_BACKENDS = [(b, m) for b in ("fused", "eager", "kernels")
+                          for m in ("single", "batched")]
+
+
+def near_parallel_scores(batch, edges, backend, mode, device):
+    """The near-parallel layouts through the front door on ``backend``,
+    one call per layout (``single``) or one batch."""
+    from repro_torch.api import EvalConfig, Evaluator
+    ev = Evaluator(EvalConfig(radius=2.0, n_strips=32, tier_strips=False,
+                              backend=backend), device=device)
+    if mode == "single":
+        return [ev.evaluate(b, edges) for b in batch]
+    return ev.evaluate_batch(batch, edges).unbatch()
+
+
+def _values(r):
+    return r if isinstance(r, dict) else {
+        f: np.asarray(getattr(r, f)).item() for f in (
+            *NEAR_PARALLEL_INTS, "minimum_angle", "edge_length_variation",
+            "edge_crossing_angle")}
+
+
+def deviation_sum(r):
+    """The deviation sum behind E_ca, recovered in float64: the mean
+    deviation m = 1 - E_ca is exact (E_ca was computed as 1 - m in
+    float32, an exact subtraction for m in [0.5, 1]), and m * count
+    differs from the float32 sum by the one rounding of the division."""
+    v = _values(r)
+    return (1.0 - v["edge_crossing_angle"]) * v["crossing_count_for_angle"]
+
+
+def check_near_parallel(got, ref):
+    """Integers equal; the deviation sum, M_a and M_l at rtol 1e-5."""
+    for g, r in zip(got, ref):
+        gv, rv = _values(g), _values(r)
+        for f in NEAR_PARALLEL_INTS:
+            assert gv[f] == rv[f], f
+        assert rv["crossing_count_for_angle"] > 4000
+        np.testing.assert_allclose(deviation_sum(gv), deviation_sum(rv),
+                                   rtol=RTOL)
+        for f in ("minimum_angle", "edge_length_variation"):
+            np.testing.assert_allclose(gv[f], rv[f], rtol=RTOL, err_msg=f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,mode", NEAR_PARALLEL_BACKENDS)
+def test_near_parallel_sweep_on_card(cuda, backend, mode):
+    """The CUDA sweep on the near-parallel case, held as the CPU route is:
+    integers and the deviation sum equal the reference's (and the
+    integers the CPU route's)."""
+    batch, edges = near_parallel_layouts()
+    got = near_parallel_scores(batch, edges, backend, mode, cuda)
+    check_near_parallel(got, NEAR_PARALLEL_REFERENCE)
+    cpu = near_parallel_scores(batch, edges, backend, mode, "cpu")
+    for g, c in zip(got, cpu):
+        for f in NEAR_PARALLEL_INTS:
+            assert _values(g)[f] == _values(c)[f], f
+
+
+@pytest.mark.gpu
+@pytest.mark.xfail(strict=True, reason=NEAR_PARALLEL_REASON)
+@pytest.mark.parametrize("backend,mode", NEAR_PARALLEL_BACKENDS)
+def test_near_parallel_eca_on_card(cuda, backend, mode):
+    """E_ca from the CUDA sweep at the parity bar (rtol 1e-5); its per-row
+    partials sum in yet another order."""
+    batch, edges = near_parallel_layouts()
+    got = near_parallel_scores(batch, edges, backend, mode, cuda)
+    for g, r in zip(got, NEAR_PARALLEL_REFERENCE):
+        np.testing.assert_allclose(g.edge_crossing_angle,
+                                   r["edge_crossing_angle"], rtol=RTOL)

@@ -225,18 +225,16 @@ def test_mesh_and_incremental_paths_are_not_ported_yet():
     # the breaker's probe_interval matters only with a mesh rung
     with pytest.raises(NotImplementedError, match="item 10"):
         EvalSession(cfg, device="cpu", probe_interval=8)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        EvalSession(cfg, device="cpu", update_dirty_threshold=0.25)
-    sess = EvalSession(cfg, device="cpu")
+    # the incremental path is ported (tests/test_torch_incremental.py
+    # twins it): its knob is accepted and its counters move
+    sess = EvalSession(cfg, device="cpu", update_dirty_threshold=0.25)
     pos, edges = graph()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sess.register_layout("a", pos, edges)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sess.update("a", [0], np.zeros((1, 2), np.float32))
-    # the counters of the paths still to port are there, and stay 0
+    sess.register_layout("a", pos, edges)
+    sess.update("a", [0], pos[:1] + np.float32(0.1))
+    # the counters of the mesh paths still to port are there, and stay 0
     s = sess.stats
     assert s["sharded_dispatches"] == s["graph_sharded_dispatches"] == 0
-    assert s["updates"] == s["delta_hits"] == s["delta_fallbacks"] == 0
+    assert s["updates"] == s["delta_hits"] + s["delta_fallbacks"] == 1
 
 
 def test_session_rejects_the_non_session_backends_like_reference():

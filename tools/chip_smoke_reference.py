@@ -28,6 +28,16 @@ Usage (from the repository root)::
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py [--jit]
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --exact [--scale S]
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --serve
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --drag
+
+``--drag`` computes the constants of ``chip_smoke.py``'s phase (f), op by
+op: the reference's ``EvalSession(EvalConfig(radius=0.5, n_strips=512),
+update_dirty_threshold=1.0)`` registers the |V| = 100,000 layout and
+replays (f)'s 20 moves of one vertex (``chip_smoke.drag_moves``: the
+vertex nearest the centre of the bounding box, steps of N(0, 0.2) from
+``numpy.random.default_rng(5)``); it prints the last ``update``'s scores
+and a from-scratch ``evaluate`` of the final layout, whose integers must
+be equal, and the session counters (every frame on the delta path).
 
 ``--serve`` computes the constants of ``chip_smoke.py``'s phase (e), op
 by op: (e1) the reference's ``ReadabilityServer(EvalConfig(radius=0.5,
@@ -163,6 +173,41 @@ def compute_serve():
                 seconds=dict(serve=t1 - t0, enhanced=t2 - t1))
 
 
+def compute_drag():
+    """(f), op by op (call under ``jax.disable_jit()``)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import drag_moves
+    from repro.launch.session import EvalSession
+    pos, edges, _ = inputs()
+    v, targets = drag_moves(pos)
+    t0 = time.perf_counter()
+    sess = EvalSession(EvalConfig(radius=RADIUS, n_strips=N_STRIPS),
+                       update_dirty_threshold=1.0)
+    sess.register_layout("drag", pos, edges)
+    t1 = time.perf_counter()
+    flags = []
+    for tgt in targets:
+        last = sess.update("drag", [v], [tgt])
+        flags.append(bool((last.flags or {}).get("incremental", False)))
+    t2 = time.perf_counter()
+    cur = np.array(pos, copy=True)
+    cur[v] = targets[-1]
+    scratch = sess.evaluate(cur, edges)
+    t3 = time.perf_counter()
+    update, full = _row(last), _row(scratch)
+    ints = ("node_occlusion", "edge_crossing", "crossing_count_for_angle",
+            "overflow")
+    return dict(vertex=v, update=update, scratch=full,
+                ints_equal=all(update[f] == full[f] for f in ints),
+                incremental_frames=sum(flags),
+                stats={k: sess.stats[k] for k in (
+                    "updates", "delta_hits", "delta_fallbacks")},
+                seconds=dict(register=t1 - t0, frames=t2 - t1,
+                             scratch=t3 - t2))
+
+
 EXACT_DATASET, EXACT_GRAPH_SEED, EXACT_LAYOUT_SEED = "ego-Facebook", 0, 1
 
 
@@ -264,8 +309,14 @@ def main():
     ap.add_argument("--serve", action="store_true",
                     help="phase (e): the server batch and the enhanced "
                          "wrappers at |V| = 100,000")
+    ap.add_argument("--drag", action="store_true",
+                    help="phase (f): 20 dragged frames of one vertex at "
+                         "|V| = 100,000 through the session's update")
     args = ap.parse_args()
-    if args.serve:
+    if args.drag:
+        with jax.disable_jit():
+            out = {"eager": compute_drag()}
+    elif args.serve:
         with jax.disable_jit():
             out = {"eager": compute_serve()}
     elif args.exact:

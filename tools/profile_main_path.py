@@ -7,13 +7,18 @@ the exact path) and, for each path -- (a) fused ``evaluate``, (b)
 calls it), (b') the same with the plan made once and passed in, (c)
 kernels ``evaluate``, (d) ``evaluate_exact`` with ``use_kernels`` False
 and True, (e1)-(e3) ``ReadabilityServer`` fused and kernels on the batch
-as 8 requests and ``method="exact"``, (e5) the enhanced wrappers -- prints
+as 8 requests and ``method="exact"``, (e5) the enhanced wrappers, (f)
+one dragged frame of the incremental path (``EvalSession.update`` of one
+vertex of the |V| = 100,000 layout, ``chip_smoke.drag_moves``) -- prints
 the wall time,
 the device time ``torch.profiler`` records, the device's idle share of
 the wall time, and the kernels that take the most device time.  For (e1)
 it also splits one call's host clock into the session's request
 preparation (validation, topology hash, pow2 padding), the batch stack
-and the engine call with its host scores.
+and the engine call with its host scores; for (f) it splits a frame's
+host clock into the probe (with its fetch), the host's dirty-set
+planning, the delta's enqueue and the scores' fetch (which waits for the
+device), as medians over 20 frames.
 
 Usage (from the repository root, on a CUDA machine)::
 
@@ -124,7 +129,67 @@ def main() -> int:
         count_crossings_enhanced(pos, edges, n_strips=N_STRIPS),
         crossing_angle_enhanced(pos, edges, n_strips=N_STRIPS),
         count_occlusions_enhanced(pos, RADIUS)), card)
+    drag_profile(cfg, pos, edges, card)
     return 0
+
+
+def drag_profile(cfg, pos, edges, card, split_frames=20):
+    """(f): a session dragging one vertex; each profiled call is one
+    frame (a fresh target each time)."""
+    from chip_smoke import drag_moves
+    from repro_torch.launch.session import EvalSession
+    v, targets = drag_moves(pos, frames=2 * RUNS + 1 + split_frames)
+    sess = EvalSession(cfg, update_dirty_threshold=1.0)
+    sess.register_layout("drag", pos, edges)
+    moves = iter(targets)
+    profile("(f) update, one dragged frame",
+            lambda: sess.update("drag", [v], [next(moves)]), card)
+    drag_split(sess, v, moves)
+    stats = sess.stats
+    print(f"    (f) updates {stats['updates']}, delta_hits "
+          f"{stats['delta_hits']}, delta_fallbacks {stats['delta_fallbacks']}")
+
+
+def drag_split(sess, v, moves):
+    """Medians over the remaining ``moves`` of one frame's host clock:
+    the probe (its fetch included), the host's dirty-set planning (the
+    rest of the frame), the delta's enqueue and the scores' fetch."""
+    from repro_torch.core import incremental
+    from repro_torch.launch import session as session_mod
+    spent = {"probe": [], "delta": [], "fetch": []}
+    originals = {}
+
+    def timed(owner, name, key):
+        fn = getattr(owner, name)
+        originals[(owner, name)] = fn
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(owner, name, wrapper)
+
+    timed(incremental, "delta_probe", "probe")
+    timed(incremental, "evaluate_delta", "delta")
+    timed(session_mod, "scores_from_result", "fetch")
+    frames = []
+    try:
+        for tgt in moves:
+            t0 = time.perf_counter()
+            sess.update("drag", [v], [tgt])
+            frames.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for (owner, name), fn in originals.items():
+            setattr(owner, name, fn)
+    planning = [f - p - d - g for f, p, d, g in zip(
+        frames, spent["probe"], spent["delta"], spent["fetch"])]
+    med = statistics.median
+    print(f"    (f) host split of a frame (median of {len(frames)}): frame "
+          f"{med(frames):.3f} ms = probe {med(spent['probe']):.3f} ms + "
+          f"planning {med(planning):.3f} ms + delta enqueue "
+          f"{med(spent['delta']):.3f} ms + fetch "
+          f"{med(spent['fetch']):.3f} ms")
 
 
 def host_split(session, reqs):
