@@ -71,14 +71,32 @@ Phases (any failed check raises):
    rehearsal of the drag on the plain version, and again with the
    invalid slots of each dirty-strip slab filled with garbage and one
    row emptied.
+   (g) the differentiable path and the gradient search: (g1)
+   ``examples/layout_optimization.py`` at its own settings (FR on
+   ``random_edges(400, 800)`` from 2 random starts, 200 iterations
+   checkpointed every 40, all checkpoints scored in one
+   ``evaluate_batch``, then ``Evaluator.search`` from the winner, 80 steps
+   x 4 restarts); (g2) ``GradientSearch(EvalConfig(radius=0.5,
+   n_strips=512), **SEARCH_KNOBS)`` on the |V| = 100,000 layout (8
+   restarts, 10 steps, re-scores every 5).  Every reported exact score
+   (``scores`` and ``init_scores``) must equal the port's own
+   ``evaluate_batch`` of the returned layouts, positions be finite, no
+   restart end below its start, every re-score launch the strip-reversal
+   kernel, and every such launch equal its plain version on the same slab
+   (captured during the run); (g2)'s first soft loss, gradient norm and
+   gradient rows at ``DIGEST_VERTICES`` must equal ``SEARCH_REFERENCE``
+   at ``SEARCH_TOLERANCE``.
 4. **Timings**: median of 5 CUDA-event-timed runs after a warm-up, for
    (a)-(e3) and (e5); for (f), over 2 replays of the drag on fresh
    sessions, the median and p95 of a frame's ``update`` (host clock; the
    call returns host scores), ``register_layout`` and its priming alone,
    a warm full ``sess.evaluate`` of the dragged layout, and the
    synchronizing CUDA calls of one frame
-   (``torch.cuda.set_sync_debug_mode``); for each kernel at each shape
-   launched in one pass of (a)-(f), its time alone on the device
+   (``torch.cuda.set_sync_debug_mode``); for (g2), one search step's
+   forward and backward beside one ``evaluate_layouts`` of the same batch
+   and plan, the search's wall time and peak memory, and for (g1), FR's
+   time per iteration; for each kernel at each shape
+   launched in one pass of (a)-(g), its time alone on the device
    (median, min and max of 21
    readings of back-to-back launches of its C entry, whose outputs are
    then held against the wrapper's result), its wrapper's time, its plain
@@ -265,6 +283,77 @@ DRILL_DEADLINE, DRILL_TIMEOUT, DRILL_HANG_SECONDS = 1.0, 2.0, 10.0
 # fallback moves the vertex of largest x by DRAG_FALLBACK_STEP outward
 DRAG_FRAMES, DRAG_STEP, DRAG_SEED = 20, 0.2, 5
 DRAG_FRONT, DRAG_FALLBACK_STEP = 3, 0.05
+# phase (g): the layout-generation loop of examples/layout_optimization.py
+# at its own settings (random_edges(400, 800, seed=0), FR from
+# random_layout(400, seed=s) for s < FR_STARTS, FR_ITERS iterations
+# checkpointed every FR_CHECK with block FR_BLOCK, the checkpoints scored
+# in one evaluate_batch at n_strips FR_N_STRIPS, then Evaluator.search from
+# the winner), and (g2) the search at full width on the |V| = 100,000
+# layout.  (g2)'s jitter is 0.001 of the layout's extent (a tenth of a
+# unit, a third of the lattice spacing): docs/search.md's default of 0.05
+# (5 units) scatters restarts 1-7 over the layout, and the plan's strip
+# caps grow from 592 to 14,104 (phase (g) prints the caps of both).
+FR_N, FR_EDGES, FR_STARTS, FR_ITERS, FR_CHECK, FR_BLOCK = 400, 800, 2, 200, 40, 256
+FR_N_STRIPS, FR_SEARCH_STEPS, FR_SEARCH_RESTARTS = 256, 80, 4
+SEARCH_KNOBS = dict(steps=10, restarts=8, rescore_every=5, jitter=0.001,
+                    seed=0)
+# (g2)'s peak learning rate: a tenth of the default 0.01 of the extent.
+# AdamW's first updates are about lr * sign(g) on every coordinate, and the
+# default (1.0 unit, three lattice spacings) scatters the layout within a
+# few steps: the step-5 re-score then replans to strip caps of thousands
+# and each later soft step takes minutes on the H100.
+SEARCH_PEAK_LR = 0.1
+# JAX reference constants of phase (g2): repro.core.soft.soft_loss summed
+# over restart 0 of the search's batch, under the plan of that batch, at
+# the starting temperature 0.05, and jax.value_and_grad of it (the loss,
+# the gradient's L2 norm and its rows at DIGEST_VERTICES), made on the CPU
+# with
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --search
+# (op by op), which also recounts them with the port in float64.
+SEARCH_REFERENCE = {
+    "loss": 0.5776817798614502,
+    "grad_norm": 0.0231400510297869,
+    "rows": (
+        (5.1071392590529285e-06, -9.433088962396141e-06),
+        (6.055552148609422e-06, 3.4484564821468666e-05),
+        (-5.790282739326358e-05, -2.6789972253027372e-05),
+        (-3.711605677381158e-05, 6.922780812601559e-06),
+        (-2.9762382837361656e-05, -4.630103285307996e-05),
+        (3.743722481885925e-05, 1.1809226634795777e-05),
+        (-1.8132459445041604e-05, 4.225003067404032e-05),
+        (6.784422294003889e-05, 3.294555426691659e-05),
+        (8.176201049536758e-07, 4.655510201700963e-05),
+        (-4.793890911969356e-05, -3.23895292240195e-05),
+        (-0.00019384181359782815, 5.624353070743382e-05),
+        (-1.1128420737804845e-05, -4.054954115417786e-05),
+        (1.64872981258668e-05, -2.4522737476218026e-06),
+        (-1.9222994524170645e-05, -1.838449747992854e-06),
+        (-3.6092398659093305e-05, 3.607284088502638e-05),
+        (-8.89534112502588e-06, 7.707133590884041e-06),
+    ),
+    # the same loss and gradient recounted with the port in float64 on the
+    # CPU: the reference's float32 values are off by these (the port's
+    # float32 CPU route by the same, to three digits)
+    "float64": {
+        "loss": 0.5776811761897346,
+        "grad_norm": 0.023137678709087395,
+        "loss_rel_diff": 1.0449911482267385e-06,
+        "grad_norm_rel_diff": 0.00010253062674666215,
+        "rows_max_abs_diff_over_max_row": 1.0542189156138235e-05,
+    },
+}
+# (g2)'s tolerances, from that recount: a float32 route is off the float64
+# values by 1.0e-6 (loss), 1.03e-4 (gradient norm) and 1.05e-5 of the
+# largest digest row (rows); a route on the card sums and rounds its own
+# way, so two float32 routes may differ by twice that.  The loss keeps
+# rtol 1e-4 (a margin of 50), the norm takes rtol 3e-4 (1.5 times twice
+# its float32 error) and the rows an absolute 1e-4 of the largest row (a
+# margin of 5).
+SEARCH_TOLERANCE = {"loss_rtol": 1e-4, "norm_rtol": 3e-4,
+                    "rows_atol_frac": 1e-4}
+# the vertices whose gradient rows (g2) holds against the reference
+DIGEST_VERTICES = tuple(int(round(i * (N_V - 1) / 15)) for i in range(16))
+
 # timed replays of the drag (phase 4), each on a fresh session
 DRAG_REPLAYS = 2
 
@@ -1153,6 +1242,261 @@ def occlusion_args(pos_p, n_valid, dev):
     return x, y, ok
 
 
+class capturing:
+    """Within the block, every launch of the strip-reversal kernel keeps a
+    copy of its arguments and of the kernel's result in ``self.slabs`` as
+    ``(label, args, (count, dev))``, so that each launch of a path can be
+    held against the plain version afterwards."""
+
+    def __init__(self, mod, path):
+        self.mod, self.path = mod, path
+        self.slabs = []
+
+    def __enter__(self):
+        self.launch = self.mod._launch
+
+        def keep(*args):
+            cnt, dev = self.launch(*args)
+            self.slabs.append((f"({self.path}) launch {len(self.slabs)}",
+                               [t.clone() for t in args[:6]],
+                               (cnt.clone(), dev.clone())))
+            return cnt, dev
+        self.mod._launch = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._launch = self.launch
+
+
+def check_captured(slabs, ideal):
+    """Each captured launch's result against the plain version on the
+    same slab: counts equal, deviation sums at rtol :data:`RTOL`.
+    Returns the largest absolute deviation error."""
+    import torch
+    from repro_torch.kernels.strip_reversal import strip_reversal_rows_plain
+    err = 0.0
+    for label, args, (cnt, dev) in slabs:
+        pc, pd = strip_reversal_rows_plain(*args, ideal=ideal)
+        torch.cuda.synchronize()
+        check(torch.equal(cnt, pc), f"strip_reversal counts differ on {label}")
+        check(torch.allclose(dev.double(), pd.double(), rtol=RTOL, atol=0.0),
+              f"strip_reversal deviation sums differ on {label}")
+        if dev.numel():
+            err = max(err, float((dev.double() - pd.double()).abs().max()))
+    return err
+
+
+class counting_rescores:
+    """Within the block, each exact re-score of a ``GradientSearch``
+    appends the strip-reversal launches it made to ``self.launches``."""
+
+    def __enter__(self):
+        from repro_torch.kernels.strip_reversal import strip_reversal_rows
+        from repro_torch.search.gradient import GradientSearch
+        self.cls, self.launches = GradientSearch, []
+        self.rescore = GradientSearch._exact_rescore
+        rescore = self.rescore
+
+        def counted(gs, *args):
+            before = strip_reversal_rows.LAUNCHES
+            out = rescore(gs, *args)
+            self.launches.append(strip_reversal_rows.LAUNCHES - before)
+            return out
+        GradientSearch._exact_rescore = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._exact_rescore = self.rescore
+
+
+def check_search(label, result, edges, cfg):
+    """(g)'s checks of one search: every reported exact score (``scores``
+    and ``init_scores``) equals the port's own ``evaluate_batch`` of the
+    returned layouts on the card (integers equal, floats at rtol
+    :data:`RTOL`), positions are finite, and the best objective is no
+    worse than the best start."""
+    import numpy as np
+    from repro_torch.api import Evaluator
+    check(np.isfinite(result.positions).all(), f"{label}: non-finite layout")
+    check(result.best_objective >= float(np.max(result.init_objectives)),
+          f"{label}: best objective {result.best_objective} below the "
+          f"best start {float(np.max(result.init_objectives))}")
+    check(np.all(result.objectives >= result.init_objectives),
+          f"{label}: a restart ended below its start")
+    ev = Evaluator(cfg)
+    for which, batch, scores in (("final", result.positions, result.scores),
+                                 ("init", result.init_positions,
+                                  result.init_scores)):
+        again = ev.evaluate_batch(batch, edges).unbatch()
+        for i, (got, want) in enumerate(zip(scores, again)):
+            same_scores(f"{label} {which} restart {i}", got, want)
+
+
+def layout_generation():
+    """(g1): examples/layout_optimization.py at its defaults on the card:
+    FR from ``FR_STARTS`` random starts, every checkpoint scored in one
+    ``evaluate_batch``, then ``Evaluator.search`` from the winner.
+    Returns the FR time per iteration (host clock around synchronized
+    FR calls), the checkpoint scores and the search result."""
+    import numpy as np
+    import torch
+    from repro_torch.api import EvalConfig, Evaluator
+    from repro_torch.graphs.datasets import random_edges
+    from repro_torch.graphs.layouts import fruchterman_reingold, random_layout
+    from repro_torch.search import batch_objectives
+    edges = random_edges(FR_N, FR_EDGES, seed=0)
+    candidates, fr_s = [], 0.0
+    for start in range(FR_STARTS):
+        pos = torch.from_numpy(random_layout(FR_N, seed=start)).cuda()
+        for _ in range(FR_ITERS // FR_CHECK):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pos = fruchterman_reingold(pos, edges, n_iter=FR_CHECK,
+                                       block=FR_BLOCK)
+            torch.cuda.synchronize()
+            fr_s += time.perf_counter() - t0
+            candidates.append(pos.cpu().numpy())
+    batch = np.stack(candidates).astype(np.float32)
+    check(np.isfinite(batch).all(), "(g1) FR produced non-finite layouts")
+    cfg = EvalConfig(n_strips=FR_N_STRIPS)
+    ev = Evaluator(cfg)
+    plan = ev.plan(batch, edges)
+    scores = ev.evaluate_batch(batch, edges, plan=plan)
+    objectives = batch_objectives(scores)
+    best = int(np.argmax(objectives))
+    result = ev.search(candidates[best], edges, steps=FR_SEARCH_STEPS,
+                       restarts=FR_SEARCH_RESTARTS)
+    return dict(edges=edges, cfg=cfg, scores=scores, objectives=objectives,
+                best=best, result=result,
+                fr_ms_per_iter=fr_s * 1e3 / (FR_STARTS * FR_ITERS))
+
+
+def search_opt():
+    """(g2)'s optimizer: ``GradientSearch``'s default schedule with the
+    peak learning rate :data:`SEARCH_PEAK_LR`."""
+    from repro_torch.optim.adamw import AdamWConfig
+    steps = SEARCH_KNOBS["steps"]
+    return AdamWConfig(peak_lr=SEARCH_PEAK_LR,
+                       warmup_steps=max(1, min(10, steps // 10)),
+                       total_steps=steps, min_lr_frac=0.1, weight_decay=0.0,
+                       clip_norm=1.0)
+
+
+def search_digest(cfg, pos, edges):
+    """(g2)'s first soft loss and gradient, as the search makes them:
+    restart 0 of its batch under its plan, at its starting temperature,
+    on the card.  Returns ``(loss, grad (V, 2) on the host)``."""
+    import torch
+    from repro_torch.core import engine, soft
+    from repro_torch.search import GradientSearch
+    gs = GradientSearch(cfg, **SEARCH_KNOBS)
+    batch, edges_v, _ = gs._init_batch(pos, edges)
+    plan = engine.plan_readability(batch, edges_v, **cfg.plan_kwargs())
+    p = torch.from_numpy(batch[:1]).cuda().requires_grad_(True)
+    loss = soft.soft_loss(plan, p, torch.from_numpy(edges_v).cuda(),
+                          gs._temperature_at(0)).sum()
+    grad, = torch.autograd.grad(loss, p)
+    return loss.item(), grad[0].cpu().numpy()
+
+
+def check_digest(loss, grad):
+    """(g2)'s digest against ``SEARCH_REFERENCE`` at the tolerances stated
+    there."""
+    import numpy as np
+    want = SEARCH_REFERENCE
+    norm = float(np.sqrt(np.sum(np.square(grad.astype(np.float64)))))
+    rows = grad[list(DIGEST_VERTICES)]
+    w_rows = np.asarray(want["rows"], np.float64)
+    tol = SEARCH_TOLERANCE
+    check(abs(loss - want["loss"]) <= tol["loss_rtol"] * abs(want["loss"]),
+          f"(g2) soft loss {loss!r}, reference {want['loss']!r}")
+    check(abs(norm - want["grad_norm"]) <= tol["norm_rtol"]
+          * want["grad_norm"],
+          f"(g2) gradient norm {norm!r}, reference {want['grad_norm']!r}")
+    row_err = float(np.max(np.abs(rows - w_rows)))
+    check(row_err <= tol["rows_atol_frac"] * float(np.max(np.abs(w_rows))),
+          f"(g2) gradient rows off by {row_err!r} (max |row| "
+          f"{float(np.max(np.abs(w_rows)))!r})")
+    return norm, row_err
+
+
+def search_step_times(cfg, pos, edges):
+    """Phase 4 for (g2): one search step's forward and backward (the
+    summed soft loss and ``torch.autograd.grad`` over the 8-restart
+    batch) and one exact ``evaluate_layouts`` of the same batch and plan,
+    each the median of :data:`REPEATS` CUDA-event-timed calls; their
+    ratio is ``benchmarks/search_bench.py``'s ``step_over_eval_ratio``.
+    Also the synchronizing CUDA calls of one whole search step (forward,
+    backward and AdamW update): the search waits on the device only at
+    its re-scores."""
+    import torch
+    from repro_torch.core import engine, soft
+    from repro_torch.optim import adamw
+    from repro_torch.search import GradientSearch
+    gs = GradientSearch(cfg, **SEARCH_KNOBS)
+    batch, edges_v, _ = gs._init_batch(pos, edges)
+    plan = engine.plan_readability(batch, edges_v, **cfg.plan_kwargs())
+    p = torch.from_numpy(batch).cuda()
+    e = torch.from_numpy(edges_v).cuda()
+    tau = torch.full((), gs._temperature_at(0), device="cuda")
+
+    def step():
+        leaf = p.detach().requires_grad_(True)
+        loss = soft.soft_loss(plan, leaf, e, tau).sum()
+        torch.autograd.grad(loss, leaf)
+
+    state = adamw.init_state({"pos": p})
+    syncs = sync_sites(lambda: gs.step(plan, search_opt(), p, state, e, tau))
+    return (cuda_ms(step), cuda_ms(lambda: engine.evaluate_layouts(
+        plan, p, e)), syncs)
+
+
+def search_paths(cfg, pos, edges, ideal, kernel_mods, run_counted,
+                 sub_launches, rev_checked):
+    """Drive (g1) and (g2), each with the launch counts set to 0 just
+    before it and read just after (``run_counted``).  Each search's
+    kernel launches are captured and held against the plain version after
+    the run (their slabs depend on where the layouts moved), and their
+    shapes join ``rev_checked``.  Returns ``(searches, (g2)'s digest, the
+    digest's seconds, the largest deviation error)``."""
+    import torch
+    from repro_torch.kernels import strip_reversal as strip_reversal_mod
+    from repro_torch.search import GradientSearch
+    g_err = 0.0
+    searches = {}
+    for key, run in (("g1", layout_generation), ("g2", lambda: GradientSearch(
+            cfg, opt=search_opt(), **SEARCH_KNOBS).run(pos, edges))):
+        if key == "g2":
+            t0 = time.perf_counter()
+            digest = search_digest(cfg, pos, edges)
+            digest_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recording_launches(*kernel_mods) as rec, \
+                capturing(strip_reversal_mod, key) as cap, \
+                counting_rescores() as rescores:
+            out = run_counted(key, rec, run)
+        torch.cuda.synchronize()
+        searches[key] = dict(out=out, seconds=time.perf_counter() - t0,
+                             rescores=rescores.launches)
+        print(f"({key}) ran in {searches[key]['seconds']:.2f} s; its "
+              f"{len(cap.slabs)} kernel launches on "
+              f"{sorted(set(tuple(a[0].shape) for _, a, _ in cap.slabs))}",
+              flush=True)
+        if key == "g2":
+            searches[key]["peak"] = torch.cuda.max_memory_allocated()
+        check(sub_launches[key][1:] == (0, 0, 0)
+              and sub_launches[key][0] == len(cap.slabs) > 0,
+              f"({key}) launched {sub_launches[key]}")
+        check(rescores.launches and min(rescores.launches) > 0,
+              f"({key}) re-scores launched the strip-reversal kernel "
+              f"{rescores.launches} times each")
+        g_err = max(g_err, check_captured(cap.slabs, ideal))
+        for label, args, _ in cap.slabs:
+            rev_checked.setdefault(tuple(args[0].shape), (label, args))
+    return searches, digest, digest_s, g_err
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1168,6 +1512,8 @@ def main() -> int:
 
     import warnings
     from collections import Counter
+
+    import numpy as np
 
     from repro_torch.api import EvalConfig, Evaluator, evaluate_exact
     from repro_torch.core import (count_crossings_enhanced,
@@ -1188,6 +1534,7 @@ def main() -> int:
     from repro_torch.kernels.strip_reversal import (
         strip_reversal_rows, strip_reversal_rows_plain)
     from repro_torch.launch.serve import ReadabilityServer
+    from repro_torch.search import GradientSearch
 
     dev = torch.device("cuda")
     card = card_line()
@@ -1565,6 +1912,53 @@ def main() -> int:
           f"constants (ints exact, floats rtol {RTOL}); the front door and "
           f"the forced fallback right", flush=True)
 
+    # (g) the differentiable path and the gradient search
+    check(SEARCH_REFERENCE is not None, "(g2) SEARCH_REFERENCE is not set")
+    searches, digest, digest_s, g_err = search_paths(
+        cfg, pos, edges, ideal, kernel_mods, run_counted, sub_launches,
+        rev_checked)
+    gen = searches["g1"]["out"]
+    g1, g2 = gen["result"], searches["g2"]["out"]
+    check(np.isfinite(np.asarray(gen["objectives"])).all()
+          and int(np.max(gen["scores"].overflow)) == 0,
+          "(g1) FR checkpoint scores")
+    check_search("(g1)", g1, gen["edges"], gen["cfg"])
+    check_search("(g2)", g2, edges, cfg)
+    digest_norm, digest_err = check_digest(*digest)
+    print(f"(g1) FR: {FR_STARTS} starts x {FR_ITERS} iterations, "
+          f"{len(gen['objectives'])} checkpoints scored in one "
+          f"evaluate_batch, best {gen['best']} (objective "
+          f"{gen['objectives'][gen['best']]:.6f}); search {g1.steps} steps x "
+          f"{g1.restarts} restarts: objective "
+          f"{float(np.max(g1.init_objectives)):.6f} -> "
+          f"{g1.best_objective:.6f} (improvement {g1.improvement:.6f}), "
+          f"counters {g1.counters}, strip_reversal launches per re-score "
+          f"{searches['g1']['rescores']}", flush=True)
+    print(f"(g2) search at |V| = {n_v}, {SEARCH_KNOBS}, peak lr "
+          f"{SEARCH_PEAK_LR}: objective "
+          f"{float(np.max(g2.init_objectives)):.6f} -> "
+          f"{g2.best_objective:.6f} (improvement {g2.improvement:.6f}), "
+          f"counters {g2.counters}, strip_reversal launches per re-score "
+          f"{searches['g2']['rescores']}; first soft loss {digest[0]!r}, "
+          f"gradient norm {digest_norm!r}, digest rows off by "
+          f"{digest_err!r} (reference {SEARCH_REFERENCE['loss']!r}, "
+          f"{SEARCH_REFERENCE['grad_norm']!r})", flush=True)
+    caps = {}
+    for jitter in (SEARCH_KNOBS["jitter"], 0.05):
+        gs = GradientSearch(cfg, **{**SEARCH_KNOBS, "jitter": jitter})
+        plan_j = engine.plan_readability(*gs._init_batch(pos, edges)[:2],
+                                         **cfg.plan_kwargs())
+        caps[jitter] = [cap for _, cap in plan_j.strip_plans]
+    print(f"(g2) the search plan's strip caps per orientation: {caps} by "
+          "jitter (docs/search.md's default is 0.05)", flush=True)
+    print(f"differentiable path and search: ok, every reported score equal "
+          f"to evaluate_batch of its layout (ints exact, floats rtol {RTOL}), "
+          f"no restart worse than its start, (g2)'s first loss and gradient "
+          f"equal to the JAX reference constants ({SEARCH_TOLERANCE}), "
+          f"strip_reversal launched by every re-score and equal to its "
+          f"plain version on every launch (max abs dev err {g_err})",
+          flush=True)
+
     # every launched shape was checked in phase 2
     launched = Counter(item for shapes in seen_shapes.values()
                        for item in shapes)
@@ -1619,6 +2013,26 @@ def main() -> int:
           f"(median of {REPEATS}, CUDA events) on {card}", flush=True)
     print(f"(f) synchronizing CUDA calls in one frame: {len(t['syncs'])} "
           f"{dict(Counter(t['syncs']))}", flush=True)
+    step_ms, eval_ms, step_syncs = search_step_times(cfg, pos, edges)
+    check(not step_syncs, f"(g2) a search step synchronized with the "
+                          f"device at {step_syncs}")
+    print(f"time (g2) search step forward+backward, B={SEARCH_KNOBS['restarts']}"
+          f" at |V| = {n_v}: {step_ms:.3f} ms; one evaluate_layouts of the "
+          f"same batch and plan: {eval_ms:.3f} ms; step_over_eval_ratio "
+          f"{step_ms / eval_ms:.3f} (medians of {REPEATS}, CUDA events) on "
+          f"{card}; synchronizing CUDA calls in one step: {len(step_syncs)}",
+          flush=True)
+    g2s = searches["g2"]
+    print(f"time (g2) the search, {SEARCH_KNOBS['steps']} steps and "
+          f"{len(g2s['rescores'])} exact re-scores: {g2s['seconds']:.3f} s; "
+          f"the digest's loss and gradient {digest_s * 1e3:.3f} ms (host "
+          f"clock); peak memory allocated {g2s['peak'] / 2 ** 30:.3f} GiB "
+          f"on {card}", flush=True)
+    print(f"time (g1) FR at |V| = {FR_N}: {gen['fr_ms_per_iter']:.4f} ms per "
+          f"iteration (host clock over {FR_STARTS * FR_ITERS} iterations in "
+          f"calls of {FR_CHECK}); the whole loop, FR, scoring and a search of "
+          f"{FR_SEARCH_STEPS} steps: {searches['g1']['seconds']:.3f} s on "
+          f"{card}", flush=True)
 
     def time_kernel(name, label, shape, launch, launches, wrapper, plain,
                     bound_and_by, plain_repeats=REPEATS, note=""):
@@ -1735,7 +2149,7 @@ def main() -> int:
              max_abs_err=angle_err, **angle, library_ms=None),
     ]
     print("kernel times are summed over every launch of one pass of "
-          "(a)-(f); launches are counted in that pass; ms is the kernel "
+          "(a)-(g); launches are counted in that pass; ms is the kernel "
           "alone on the device (median), wrapper_ms the wrapper's call",
           flush=True)
     print(json.dumps({"kernels": kernels}))

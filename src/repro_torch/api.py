@@ -14,9 +14,11 @@ Backends served: ``"fused"`` (plan-cached session, shape-bucketed),
 exact all-pairs occlusion kernel).  ``"distributed"``,
 ``"graph_sharded"`` and ``precision="bfloat16"`` are accepted by
 :class:`EvalConfig` (its digest needs them) but raise
-``NotImplementedError`` here; ``search`` is not ported yet.
+``NotImplementedError`` here.
 :meth:`Evaluator.register_layout` / :meth:`Evaluator.update` serve
-dynamic layouts (incremental on ``"fused"``).  :func:`evaluator_for` is
+dynamic layouts (incremental on ``"fused"``); :meth:`Evaluator.search`
+runs the gradient layout search (:class:`SearchResult`, exact scores
+only).  :func:`evaluator_for` is
 the process-wide evaluator cache the deprecated shims map onto.
 :func:`evaluate_exact` is the exact all-pairs reference path (paper
 S3.1), the ground truth of the enhanced metrics.
@@ -51,12 +53,14 @@ from repro_torch.core.validate import (BackendUnavailableError,  # noqa: F401
                                        validate_request)
 from repro_torch.launch.admission import CancelToken  # noqa: F401
 from repro_torch.launch.session import EvalSession
+from repro_torch.search.gradient import GradientSearch, SearchResult
 
 __all__ = [
     "ALL_METRICS", "BackendUnavailableError", "CancelToken",
     "CancelledError", "CapacityError", "DeadlineExceededError", "EvalConfig",
-    "EvalSession", "Evaluator", "InvalidInputError", "OverloadedError",
-    "ReadabilityError", "ReadabilityScores", "evaluate_exact",
+    "EvalSession", "Evaluator", "GradientSearch", "InvalidInputError",
+    "OverloadedError", "ReadabilityError", "ReadabilityScores",
+    "SearchResult", "evaluate_exact",
     "evaluator_for", "pow2_bucket", "pow2_chunks",
     "reset_deprecation_warnings", "scores_from_batch", "scores_from_result",
     "topology_hash", "validate_batch", "validate_request",
@@ -88,6 +92,9 @@ class Evaluator:
       and device; ``**knobs`` are its serving-policy knobs, the overload
       knobs (``max_queue``, ``default_deadline``, ``dispatch_timeout``,
       ...) included.
+    * :meth:`search` -- gradient-guided layout search from a seed layout
+      (:class:`~repro_torch.search.gradient.GradientSearch` on this
+      config and device).
     """
 
     def __init__(self, config: EvalConfig = None, *, device=None,
@@ -230,6 +237,22 @@ class Evaluator:
                                       use_kernels=self.config.use_kernels,
                                       device=self.device, **valid)
         return host_batch(res, n_v, n_e, flags)
+
+    # -- search -------------------------------------------------------------
+
+    def search(self, pos0, edges, **knobs) -> SearchResult:
+        """Gradient-guided layout search from ``pos0`` under this config's
+        metric subset and geometry, on this evaluator's device.
+
+        ``pos0`` is a ``(V, 2)`` seed layout (jittered into ``restarts``
+        parallel starts) or an explicit ``(B, V, 2)`` restart batch;
+        ``knobs`` are :class:`~repro_torch.search.gradient.GradientSearch`
+        keywords (``steps``, ``restarts``, ``rescore_every``, ``opt``,
+        ``weights``, ``temperature``, ...).  Returns a
+        :class:`SearchResult` of exact scores; ``result.best_positions``
+        is the winning layout."""
+        knobs.setdefault("device", self.device)
+        return GradientSearch(self.config, **knobs).run(pos0, edges)
 
 
 def _pad_degenerate(batch_pos, edges):

@@ -28,9 +28,36 @@ def segment_theta(x1, y1, x2, y2):
                            math.pi)
 
 
+def _safe_atan2(ex, ey):
+    """``atan2(ey, ex)`` with the double-``where`` guard: a zero-length
+    vector goes through the constant ``atan2(0, 1)``, which equals the
+    primal ``atan2(0, 0) = 0`` bit for bit, so the forward value is
+    unchanged and the gradient there is exactly zero instead of NaN (a
+    NaN partial poisons the whole backward pass, even under a zero
+    cotangent)."""
+    degen = (ex == 0) & (ey == 0)
+    return torch.atan2(torch.where(degen, 0.0, ey),
+                       torch.where(degen, 1.0, ex))
+
+
+def segment_theta_safe(x1, y1, x2, y2):
+    """:func:`segment_theta` with a finite (zero) gradient at zero-length
+    segments and bit-identical forward values; the soft paths use it."""
+    theta = _safe_atan2(x2 - x1, y2 - y1)
+    return torch.remainder(torch.where(theta < 0, theta + math.pi, theta),
+                           math.pi)
+
+
 def directed_angle(x1, y1, x2, y2):
     """Directed angle of the ray (x1,y1) -> (x2,y2) in [0, 2*pi)."""
     a = torch.atan2(y2 - y1, x2 - x1)
+    return torch.where(a < 0, a + TWO_PI, a)
+
+
+def directed_angle_safe(x1, y1, x2, y2):
+    """:func:`directed_angle` with a finite (zero) gradient at zero-length
+    rays (the guard of :func:`segment_theta_safe`)."""
+    a = _safe_atan2(x2 - x1, y2 - y1)
     return torch.where(a < 0, a + TWO_PI, a)
 
 

@@ -339,12 +339,21 @@ def build_strip_segments(pos, edges, n_strips: int, max_segments: int, *,
 
 def build_strip_segments_batched(pos, edges, n_strips: int,
                                  max_segments: int, *, axis: int = 0,
-                                 edge_valid=None) -> StripSegments:
+                                 edge_valid=None,
+                                 safe_theta: bool = False) -> StripSegments:
     """Batched :func:`build_strip_segments`: ``(B, V, 2)`` layouts of one
     graph -> fields ``(B, max_segments)``, overflow ``(B,)``.  Same
     elementwise op sequence as the single-layout build, plus the
-    reference's empty-extent pin (zero valid edges -> domain [0, 1])."""
-    from repro_torch.core.geometry import segment_theta
+    reference's empty-extent pin (zero valid edges -> domain [0, 1]).
+
+    Differentiable in ``pos``: the ordinates, angles and domain come from
+    gathers and elementwise ops only, and ``min`` / ``max`` split the
+    gradient at ties as the reference's do.  ``safe_theta=True`` takes
+    the parent-edge angle from
+    :func:`~repro_torch.core.geometry.segment_theta_safe` (identical
+    forward values, zero gradient on zero-length edges): the soft path's
+    option."""
+    from repro_torch.core.geometry import segment_theta, segment_theta_safe
 
     CALL_COUNTS["strip_builds"] += 1
     dev = pos.device
@@ -354,7 +363,8 @@ def build_strip_segments_batched(pos, edges, n_strips: int,
     q = pos[:, e1]
     x1, y1 = p[..., axis], p[..., 1 - axis]
     x2, y2 = q[..., axis], q[..., 1 - axis]
-    theta = segment_theta(p[..., 0], p[..., 1], q[..., 0], q[..., 1])
+    theta_fn = segment_theta_safe if safe_theta else segment_theta
+    theta = theta_fn(p[..., 0], p[..., 1], q[..., 0], q[..., 1])
     if edge_valid is None:
         edge_valid = torch.ones(E, dtype=torch.bool, device=dev)
     ev = edge_valid.expand(x1.shape)
@@ -366,7 +376,8 @@ def build_strip_segments_batched(pos, edges, n_strips: int,
     some = torch.isfinite(lo)
     lo = torch.where(some, lo, 0.0)
     hi = torch.where(some, hi, 1.0)
-    width = torch.clamp_min((hi - lo) / _scalar(n_strips, pos), 1e-30)
+    width = torch.maximum((hi - lo) / _scalar(n_strips, pos),
+                          _scalar(1e-30, pos))
 
     xa = torch.minimum(x1, x2)
     xb = torch.maximum(x1, x2)

@@ -19,13 +19,14 @@ import math
 import torch
 
 from repro_torch.core import grid as gridlib
-from repro_torch.core.geometry import TWO_PI, directed_angle
+from repro_torch.core.geometry import (TWO_PI, directed_angle,
+                                       directed_angle_safe)
 
 
-def _half_edges(pos, edges, edge_valid, V):
+def _half_edges(pos, edges, edge_valid, V, angle_fn=directed_angle):
     """Directed half-edges, invalid ones routed to trash vertex ``V``:
-    ``(src (2E,), ok (2E,), sx, sy, dx, dy)`` with coordinates over the
-    leading batch dims of ``pos``."""
+    ``(src (2E,), angles)`` with the angles over the leading batch dims
+    of ``pos``."""
     src = torch.cat([edges[:, 0], edges[:, 1]]).long()
     dst = torch.cat([edges[:, 1], edges[:, 0]]).long()
     ok = torch.cat([edge_valid, edge_valid])
@@ -36,7 +37,7 @@ def _half_edges(pos, edges, edge_valid, V):
     sy = torch.where(ok, py[..., srcc], 0.0)
     dx = torch.where(ok, px[..., dst], 1.0)
     dy = torch.where(ok, py[..., dst], 0.0)
-    return src, directed_angle(sx, sy, dx, dy)
+    return src, angle_fn(sx, sy, dx, dy)
 
 
 def _m_a(deg, phi_min, dim):
@@ -78,7 +79,8 @@ def minimum_angle(pos, edges, *, n_vertices=None, edge_valid=None):
     return _m_a(deg[:V], phi_min, None)
 
 
-def minimum_angle_batched(pos, edges, *, edge_valid=None):
+def minimum_angle_batched(pos, edges, *, edge_valid=None,
+                          safe_grad: bool = False):
     """Batched M_a: ``(B, V, 2)`` layouts of one graph -> ``(B,)``.
 
     The vertex keys are layout-invariant, so the run layout of the
@@ -87,6 +89,11 @@ def minimum_angle_batched(pos, edges, *, edge_valid=None):
     first/last element, and the min gap within each run comes from a
     doubling segmented min (log2(2E) elementwise passes).  Returns
     ``(m_a (B,), counted (B, V))``.
+
+    ``safe_grad=True`` takes the half-edge angles from
+    :func:`~repro_torch.core.geometry.directed_angle_safe` (identical
+    forward values, finite gradients on zero-length edges): the soft
+    path's option.  The exact paths keep the default.
     """
     gridlib.CALL_COUNTS["vertex_sorts"] += 1
     B, V = pos.shape[0], pos.shape[1]
@@ -94,7 +101,9 @@ def minimum_angle_batched(pos, edges, *, edge_valid=None):
     if edge_valid is None:
         edge_valid = torch.ones(edges.shape[0], dtype=torch.bool,
                                 device=dev_)
-    src, ang = _half_edges(pos, edges, edge_valid, V)   # ang: (B, 2E)
+    src, ang = _half_edges(pos, edges, edge_valid, V,
+                           directed_angle_safe if safe_grad
+                           else directed_angle)         # ang: (B, 2E)
     n = ang.shape[1]
 
     # per-row (vertex, angle) order: sort angles, then stable-sort the

@@ -347,9 +347,8 @@ def test_api_surface_is_warning_free_and_matches_reference(graph):
     ev.session().evaluate(pos, edges)
     t_api.evaluate_exact(pos, edges, config=cfg, device="cpu")
     ReadabilityServer(cfg, device="cpu").evaluate_batch([(pos, edges)])
-    # the reference's front door, less what is still to port (search)
-    assert set(t_api.__all__) == set(REF.api.__all__) - {"GradientSearch",
-                                                         "SearchResult"}
+    # the reference's front door, search included
+    assert set(t_api.__all__) == set(REF.api.__all__)
     for name in t_api.__all__:
         assert getattr(t_api, name) is not None
 

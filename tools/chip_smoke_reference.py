@@ -29,6 +29,8 @@ Usage (from the repository root)::
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --exact [--scale S]
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --serve
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --drag
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --search
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --near-parallel
 
 ``--drag`` computes the constants of ``chip_smoke.py``'s phase (f), op by
 op: the reference's ``EvalSession(EvalConfig(radius=0.5, n_strips=512),
@@ -61,6 +63,26 @@ reuses, and why they apply:
   ``method="exact"`` shim, at radius 0.5 and the default ideal angle:
   the very call of (d0), so it is held to ``EXACT_REFERENCE``.
 * (e5) has no earlier counterpart and gets its own constants.
+
+``--search`` computes the constants of ``chip_smoke.py``'s phase (g2), op
+by op: the search's restart batch as ``repro.search.GradientSearch``
+draws it (``chip_smoke.SEARCH_KNOBS``: 8 restarts, ``jitter`` 0.001 of the
+layout's extent, ``seed`` 0) from the |V| = 100,000 layout, the plan of
+that batch (``EvalConfig(radius=0.5, n_strips=512)``), and
+``jax.value_and_grad`` of ``repro.core.soft.soft_loss`` summed over
+restart 0 (the unperturbed layout) at the starting temperature 0.05: the
+loss, the gradient's L2 norm and the gradient rows of
+``chip_smoke.DIGEST_VERTICES``.  It also recounts the same loss and
+gradient with the port in float64 on the CPU and prints how far the
+reference's float32 values are from the recount; ``chip_smoke.py``'s
+tolerances rest on that (``SEARCH_REFERENCE["float64"]``).  About 10
+minutes of CPU and 10 GB.
+
+``--near-parallel`` runs the reference's engine on
+``repro_torch.kernels.fixtures.near_parallel_layouts()`` (``RADIUS`` 2.0,
+``N_STRIPS`` 32, flat strips; ROADMAP queue 3) twice, jitted and op by
+op, single and batched, and prints E_ca, the crossing counts and the
+deviation sums of both routes with their relative differences.
 
 It prints one JSON object: the constants ``chip_smoke.py`` holds the card
 against.
@@ -138,6 +160,14 @@ def compute():
                              exact=t4 - t3))
 
 
+def _smoke():
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
 def compute_serve():
     """(e1) and (e5), op by op (call under ``jax.disable_jit()``)."""
     pos, edges, batch = inputs()
@@ -149,12 +179,9 @@ def compute_serve():
                                           "replans", "plan_misses",
                                           "quarantined", "dispatch_failures")}
     # the (b) constants chip_smoke.py holds (e1) and (e2) to
-    import sys
-    from pathlib import Path
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    from chip_smoke import INT_FIELDS, REFERENCE
-    same = [all(r[f] == want[f] for f in INT_FIELDS)
-            for r, want in zip(serve, REFERENCE["batch"])]
+    smoke = _smoke()
+    same = [all(r[f] == want[f] for f in smoke.INT_FIELDS)
+            for r, want in zip(serve, smoke.REFERENCE["batch"])]
     t1 = time.perf_counter()
     jp, je = jax.numpy.asarray(pos), jax.numpy.asarray(edges)
     ec, ec_ov = count_crossings_enhanced(jp, je, n_strips=N_STRIPS)
@@ -175,13 +202,9 @@ def compute_serve():
 
 def compute_drag():
     """(f), op by op (call under ``jax.disable_jit()``)."""
-    import sys
-    from pathlib import Path
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-    from chip_smoke import drag_moves
     from repro.launch.session import EvalSession
     pos, edges, _ = inputs()
-    v, targets = drag_moves(pos)
+    v, targets = _smoke().drag_moves(pos)
     t0 = time.perf_counter()
     sess = EvalSession(EvalConfig(radius=RADIUS, n_strips=N_STRIPS),
                        update_dirty_threshold=1.0)
@@ -206,6 +229,114 @@ def compute_drag():
                     "updates", "delta_hits", "delta_fallbacks")},
                 seconds=dict(register=t1 - t0, frames=t2 - t1,
                              scratch=t3 - t2))
+
+
+def compute_search():
+    """(g2)'s first soft loss and gradient digest, op by op, and the
+    port's float64 recount of them."""
+    from unittest import mock
+
+    import jax.numpy as jnp
+    import torch
+
+    from repro.core import engine as ref_engine
+    from repro.core import soft as ref_soft
+    from repro.search import GradientSearch
+    from repro_torch.core import engine as t_engine
+    from repro_torch.core import soft as t_soft
+
+    smoke = _smoke()
+    pos, edges, _ = inputs()
+    cfg = EvalConfig(radius=RADIUS, n_strips=N_STRIPS)
+    gs = GradientSearch(cfg, **smoke.SEARCH_KNOBS)
+    batch, edges_v, _ = gs._init_batch(pos, edges)
+    plan = ref_engine.plan_readability(batch, edges_v, **cfg.plan_kwargs())
+    tau = gs._temperature_at(0)
+    idx = np.asarray(smoke.DIGEST_VERTICES)
+    t0 = time.perf_counter()
+    with jax.disable_jit():
+        loss, grad = jax.value_and_grad(lambda p: jnp.sum(ref_soft.soft_loss(
+            plan, p, edges_v, jnp.float32(tau))))(jnp.asarray(batch[:1]))
+    grad = np.asarray(grad)[0]
+    t1 = time.perf_counter()
+    tplan = t_engine.plan_from_reference(plan)
+
+    def port(dtype):
+        p = torch.tensor(batch[:1].astype(dtype), requires_grad=True)
+        loss = t_soft.soft_loss(tplan, p, torch.from_numpy(edges_v),
+                                tau).sum()
+        g, = torch.autograd.grad(loss, p)
+        return loss.item(), g[0].numpy()
+
+    loss32, g32 = port(np.float32)
+    with mock.patch.object(t_engine.ReadabilityPlan, "dtype",
+                           property(lambda self: torch.float64)):
+        loss64, g64 = port(np.float64)
+    t2 = time.perf_counter()
+
+    def norm(g):
+        return float(np.sqrt(np.sum(np.square(g.astype(np.float64)))))
+
+    def off(loss_, g):
+        """How far a float32 loss and gradient are from the recount."""
+        return dict(
+            loss_rel_diff=abs(loss_ - loss64) / abs(loss64),
+            grad_norm_rel_diff=abs(norm(g) - norm(g64)) / norm(g64),
+            rows_max_abs_diff_over_max_row=float(np.max(np.abs(
+                g[idx] - g64[idx]))) / float(np.max(np.abs(g64[idx]))),
+            grad_max_abs_diff_over_max=float(np.max(np.abs(g - g64)))
+            / float(np.max(np.abs(g64))))
+
+    return dict(
+        knobs=smoke.SEARCH_KNOBS, temperature=tau,
+        plan=dict(cell_cap=int(plan.cell_cap),
+                  strip_plans=[list(map(int, sp)) for sp in plan.strip_plans],
+                  tier_caps=[list(map(int, t[0])) for t in plan.strip_tiers]),
+        loss=float(loss), grad_norm=norm(grad), vertices=idx.tolist(),
+        rows=grad[idx].tolist(),
+        float64=dict(loss=loss64, grad_norm=norm(g64),
+                     reference_off=off(float(loss), grad),
+                     port_cpu_float32_off=off(loss32, g32)),
+        seconds=dict(reference=t1 - t0, port=t2 - t1))
+
+
+def compute_near_parallel():
+    """The reference's engine on the near-parallel layouts, jitted and op
+    by op (ROADMAP queue 3)."""
+    from repro.core import engine as ref_engine
+    from repro_torch.kernels.fixtures import near_parallel_layouts
+
+    batch, edges = near_parallel_layouts()
+    plan = ref_engine.plan_readability(batch, edges, radius=2.0,
+                                       n_strips=32, tier_strips=False)
+
+    def run():
+        b = ref_engine.evaluate_layouts(plan, batch, edges)
+        singles = [ref_engine.evaluate_planned(plan, p, edges)
+                   for p in batch]
+        rows = []
+        for i in range(batch.shape[0]):
+            for label, r in (("batched", jax.tree_util.tree_map(
+                    lambda x: x[i], b)), ("single", singles[i])):
+                count = int(r.crossing_count_for_angle)
+                e_ca = float(r.edge_crossing_angle)
+                rows.append(dict(member=i, route=label, count=count,
+                                 edge_crossing_angle=e_ca,
+                                 dev_sum=(1.0 - e_ca) * count))
+        return rows
+
+    jitted = run()
+    with jax.disable_jit():
+        eager = run()
+    for j, e in zip(jitted, eager):
+        j["eca_rel_diff_vs_op_by_op"] = abs(
+            j["edge_crossing_angle"] - e["edge_crossing_angle"]) / abs(
+            e["edge_crossing_angle"])
+        j["dev_sum_rel_diff_vs_op_by_op"] = abs(
+            j["dev_sum"] - e["dev_sum"]) / abs(e["dev_sum"])
+    return dict(jit=jitted, op_by_op=eager,
+                agree_at_rtol_1e5=all(
+                    j["eca_rel_diff_vs_op_by_op"] <= 1e-5 for j in jitted))
 
 
 EXACT_DATASET, EXACT_GRAPH_SEED, EXACT_LAYOUT_SEED = "ego-Facebook", 0, 1
@@ -312,8 +443,18 @@ def main():
     ap.add_argument("--drag", action="store_true",
                     help="phase (f): 20 dragged frames of one vertex at "
                          "|V| = 100,000 through the session's update")
+    ap.add_argument("--search", action="store_true",
+                    help="phase (g2): the first soft loss and gradient of "
+                         "the search at |V| = 100,000")
+    ap.add_argument("--near-parallel", action="store_true",
+                    help="the reference's jitted and op-by-op E_ca on the "
+                         "near-parallel layouts")
     args = ap.parse_args()
-    if args.drag:
+    if args.search:
+        out = {"eager": compute_search()}
+    elif args.near_parallel:
+        out = compute_near_parallel()
+    elif args.drag:
         with jax.disable_jit():
             out = {"eager": compute_drag()}
     elif args.serve:

@@ -9,8 +9,11 @@ kernels ``evaluate``, (d) ``evaluate_exact`` with ``use_kernels`` False
 and True, (e1)-(e3) ``ReadabilityServer`` fused and kernels on the batch
 as 8 requests and ``method="exact"``, (e5) the enhanced wrappers, (f)
 one dragged frame of the incremental path (``EvalSession.update`` of one
-vertex of the |V| = 100,000 layout, ``chip_smoke.drag_moves``) -- prints
-the wall time,
+vertex of the |V| = 100,000 layout, ``chip_smoke.drag_moves``), (g1) one
+step of the layout-generation example's search (4 restarts of an FR
+layout at |V| = 400) and (g2) one step of ``chip_smoke.py``'s search at
+|V| = 100,000 (8 restarts; the soft loss's forward and backward and the
+AdamW update) -- prints the wall time,
 the device time ``torch.profiler`` records, the device's idle share of
 the wall time, and the kernels that take the most device time.  For (e1)
 it also splits one call's host clock into the session's request
@@ -130,7 +133,43 @@ def main() -> int:
         crossing_angle_enhanced(pos, edges, n_strips=N_STRIPS),
         count_occlusions_enhanced(pos, RADIUS)), card)
     drag_profile(cfg, pos, edges, card)
+    search_profile(cfg, pos, edges, card)
     return 0
+
+
+def search_profile(cfg, pos, edges, card):
+    """(g1) and (g2): one search step each, from the search's own start
+    (the same state every call)."""
+    import torch
+    from chip_smoke import (FR_BLOCK, FR_EDGES, FR_ITERS, FR_N, FR_N_STRIPS,
+                            FR_SEARCH_RESTARTS, FR_SEARCH_STEPS, SEARCH_KNOBS,
+                            search_opt)
+    from repro_torch.api import EvalConfig
+    from repro_torch.core import engine
+    from repro_torch.graphs.datasets import random_edges
+    from repro_torch.graphs.layouts import fruchterman_reingold, random_layout
+    from repro_torch.optim import adamw
+    from repro_torch.search import GradientSearch
+
+    fr_edges = random_edges(FR_N, FR_EDGES, seed=0)
+    fr_pos = fruchterman_reingold(random_layout(FR_N, seed=0), fr_edges,
+                                  n_iter=FR_ITERS, block=FR_BLOCK)
+    for label, gs, p0, e0 in (
+            (f"(g1) search step, {FR_SEARCH_RESTARTS} restarts at |V| = "
+             f"{FR_N}", GradientSearch(EvalConfig(n_strips=FR_N_STRIPS),
+                                       steps=FR_SEARCH_STEPS,
+                                       restarts=FR_SEARCH_RESTARTS),
+             fr_pos.cpu().numpy(), fr_edges),
+            (f"(g2) search step, {SEARCH_KNOBS['restarts']} restarts at |V| "
+             f"= {pos.shape[0]}", GradientSearch(cfg, opt=search_opt(),
+                                                 **SEARCH_KNOBS), pos, edges)):
+        batch, e, _ = gs._init_batch(p0, e0)
+        plan = engine.plan_readability(batch, e, **gs.config.plan_kwargs())
+        opt = gs._resolve_opt(gs._extent(batch))
+        p, e = engine.device_inputs(batch, e)
+        state = adamw.init_state({"pos": p})
+        tau = torch.full((), gs._temperature_at(0), device=p.device)
+        profile(label, lambda: gs.step(plan, opt, p, state, e, tau), card)
 
 
 def drag_profile(cfg, pos, edges, card, split_frames=20):
