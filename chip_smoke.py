@@ -86,6 +86,24 @@ Phases (any failed check raises):
    (captured during the run); (g2)'s first soft loss, gradient norm and
    gradient rows at ``DIGEST_VERTICES`` must equal ``SEARCH_REFERENCE``
    at ``SEARCH_TOLERANCE``.
+   (h) the distributed paths (``repro_torch.distributed``) on (a)'s
+   layout and (b)'s batch: (h1) ``evaluate_graph_sharded`` on a one-rank
+   NCCL group (a flat plan; integers equal to the single-device fused
+   engine's and (a)'s constants; one halo exchange, none for an E_c /
+   E_ca-only plan), (h3) ``evaluate_layouts_sharded`` of (b)'s batch
+   ((b)'s constants), (h4) ``Evaluator(backend="distributed").evaluate``
+   (N_c through the occlusion-pair kernel on a row range, E_c / E_ca
+   through the strip-reversal kernel; (a)'s constants) and (h6) the
+   session's mesh drills (``backend="graph_sharded"``, a lost mesh, the
+   canary probe and auto-restore, a rejected probe; each counter what
+   ``FaultPlan`` injected, every result the fused one); then on
+   ``H_WORLD`` ranks over gloo, each a process on the one card: (h2) the
+   graph-sharded evaluation (equal to (h1)), (h3) with a cut of
+   ``H_CUT`` layouts, (h4) and (h5) ``sharded_crossing_count`` on (d)'s
+   layout (kernel 3 on half the rows each; (d)'s E_c).  Every
+   strip-reversal launch of (h) is held against the plain version, and
+   every row-range launch (kernel, size, rows) is checked, timed and
+   bounded.  Times of two ranks on one card are no speedup.
 4. **Timings**: median of 5 CUDA-event-timed runs after a warm-up, for
    (a)-(e3) and (e5); for (f), over 2 replays of the drag on fresh
    sessions, the median and p95 of a frame's ``update`` (host clock; the
@@ -104,8 +122,12 @@ Phases (any failed check raises):
    need, on the data phase 2 checked at that shape; a kernel's numbers
    are summed over its launches in the pass.
 
-The last lines are a ``{"kernels": [...]}`` JSON line, the card line
+The last lines are a ``{"kernels": [...]}`` JSON line (the four kernels
+over (a)-(g), and the row-range launches of kernels 2 and 3 over (h) as
+``occlusion_pairs_rows`` and ``segment_crossing_rows``), the card line
 from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
+``python3 chip_smoke.py --rank R --world W --port P`` is one rank of
+(h)'s gloo group, which the script starts itself.
 """
 
 from __future__ import annotations
@@ -356,6 +378,12 @@ DIGEST_VERTICES = tuple(int(round(i * (N_V - 1) / 15)) for i in range(16))
 
 # timed replays of the drag (phase 4), each on a fresh session
 DRAG_REPLAYS = 2
+# phase (h): (h2)-(h5) run on H_WORLD ranks over gloo, every rank a
+# process of its own on the one card (NCCL refuses two ranks on one
+# device), so their times are no speedup; (h3) also evaluates the first
+# H_CUT layouts of (b)'s batch, which the ranks pad with copies of layout
+# 0; each rank process must end within H_TIMEOUT seconds
+H_WORLD, H_CUT, H_TIMEOUT = 2, 7, 600
 
 # JAX reference constants of phase (f): the reference's EvalSession(cfg,
 # update_dirty_threshold=1.0) on the |V| = 100,000 layout after the 20
@@ -743,33 +771,38 @@ def crossing_bound_ms(n, n_valid, straddles, crossings, angle):
     return bound(nbytes, ops)
 
 
-def raw_launcher(name, args, *, ideal=1.0, radius=None, fn=None):
+def raw_launcher(name, args, *, ideal=1.0, radius=None, fn=None,
+                 rows=None):
     """A call of kernel ``name``'s C entry (or of ``fn``, a variant's entry
     of the same signature) on ``args`` (the wrapper's arguments) into
     outputs allocated once: the kernel alone, without the wrapper's
     checks, allocations and sums, and not counted in the wrapper's
-    launches.  ``launch.result()`` reduces the outputs as the wrapper
-    does, so that :func:`time_kernel` can hold what was timed against the
-    wrapper's result.  The crossing kernels' outputs are zeroed and hold
-    a partial for every tile of the square grid, so that a variant that
-    writes the tiles below the diagonal fits too."""
+    launches.  ``rows`` is the row range of a row-range launch of the
+    occlusion-pair or segment-crossing kernel (default: every row).
+    ``launch.result()`` reduces the outputs as the wrapper does, so that
+    :func:`time_kernel` can hold what was timed against the wrapper's
+    result.  The crossing kernels' outputs are zeroed and hold a partial
+    for every tile of the square grid, so that a variant that writes the
+    tiles below the diagonal fits too."""
     import torch
     from repro_torch.kernels._build import entry
     fn = fn or entry(name)
     dev = args[0].device
     stream = torch.cuda.current_stream(dev).cuda_stream
     n = args[0].shape[0]
+    row0, row1 = (0, n) if rows is None else rows
     if name == "strip_reversal":
         rows, cap = args[0].shape
         outs = (torch.empty(rows, dtype=torch.int64, device=dev),
                 torch.empty(rows, dtype=torch.float32, device=dev))
         tail = (rows, cap, float(ideal), 1)
     elif name == "occlusion_pairs":
-        from repro_torch.kernels.occlusion_pairs import TILE, _threshold
-        n_t = n // TILE
-        outs = (torch.empty(n_t * (n_t + 1) // 2, dtype=torch.int32,
-                            device=dev),)
-        tail = (n, float(_threshold(radius, torch.empty(0))))
+        from repro_torch.kernels.occlusion_pairs import (
+            TILE, _threshold, row_tile_count)
+        outs = (torch.empty(row_tile_count(n // TILE, row0 // TILE,
+                                           (row1 - row0) // TILE),
+                            dtype=torch.int32, device=dev),)
+        tail = (n, row0, row1, float(_threshold(radius, torch.empty(0))))
     else:
         from repro_torch.kernels.crossing_angle_sum import _ideal_and_recip
         from repro_torch.kernels.segment_crossing import TILE
@@ -778,7 +811,7 @@ def raw_launcher(name, args, *, ideal=1.0, radius=None, fn=None):
         if name == "segment_crossing":
             args = args[:4] + args[5:]            # no theta
             outs = outs[:1]
-            tail = (n,)
+            tail = (n, row0, row1)
         else:
             tail = (n, *(float(t) for t in _ideal_and_recip(ideal)))
     ptrs = [a.data_ptr() for a in args] + list(tail) + [
@@ -1497,8 +1530,543 @@ def search_paths(cfg, pos, edges, ideal, kernel_mods, run_counted,
     return searches, digest, digest_s, g_err
 
 
+# ---------------------------------------------------------------------------
+# phase (h): the distributed paths
+# ---------------------------------------------------------------------------
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def init_group(backend, rank, world, port):
+    """One process group of ``world`` ranks with a time limit, so that a
+    hung rank fails the run instead of hanging it."""
+    import datetime
+    import torch.distributed as dist
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+
+
+class recording_rows:
+    """Within the block, every launch of the occlusion-pair and
+    segment-crossing kernels appends ``(kernel, n, row0, row1)`` to
+    ``self.seen``."""
+
+    def __enter__(self):
+        from repro_torch.kernels import occlusion_pairs, segment_crossing
+        self.mods = {"occlusion_pairs": occlusion_pairs,
+                     "segment_crossing": segment_crossing}
+        self.launches = {k: m._launch for k, m in self.mods.items()}
+        self.seen = []
+        for name, mod in self.mods.items():
+            mod._launch = self._recorder(name, self.launches[name])
+        return self
+
+    def _recorder(self, name, launch):
+        def recording_launch(*args):
+            self.seen.append((name, int(args[0].shape[0]), int(args[-2]),
+                              int(args[-1])))
+            return launch(*args)
+        return recording_launch
+
+    def __exit__(self, *exc):
+        for name, mod in self.mods.items():
+            mod._launch = self.launches[name]
+
+
+def h_counters():
+    """The wrappers whose launches (h) counts, by kernel name."""
+    from repro_torch.kernels.occlusion_pairs import (occlusion_pairs,
+                                                     occlusion_pairs_rows)
+    from repro_torch.kernels.segment_crossing import (crossing_count,
+                                                      crossing_count_rows)
+    from repro_torch.kernels.strip_reversal import strip_reversal_rows
+    return {"strip_reversal": strip_reversal_rows,
+            "occlusion_pairs": occlusion_pairs,
+            "occlusion_pairs_rows": occlusion_pairs_rows,
+            "segment_crossing": crossing_count,
+            "segment_crossing_rows": crossing_count_rows}
+
+
+def h_run(runs, key, call):
+    """Run one (h) path with every counted wrapper's launches set to 0 just
+    before it, and keep its result and the launches read just after."""
+    from repro_torch.core import grid
+    counters = h_counters()
+    for fn in counters.values():
+        fn.LAUNCHES = 0
+    halo = grid.CALL_COUNTS["halo_exchanges"]
+    out = call()
+    runs[key] = dict(out=out, launches={k: fn.LAUNCHES
+                                        for k, fn in counters.items()},
+                     halo=grid.CALL_COUNTS["halo_exchanges"] - halo)
+    return out
+
+
+def h_paths(world, dev, cfg, pos, edges, batch, flat, tiered, exact=None):
+    """(h)'s runs on this rank of a ``world``-rank group: the graph-sharded
+    evaluation of (a)'s layout on a flat plan and of its E_c / E_ca-only
+    subset ((h1) on one rank, (h2) on several), the batch-sharded (b)
+    batch and, on several ranks, its ``H_CUT``-layout cut ((h3)),
+    ``Evaluator(backend="distributed").evaluate`` ((h4)) and, with
+    ``exact`` on several ranks, the row-sharded exact E_c of (d)'s layout
+    ((h5)).  Host results, launches and halo exchanges per run, the
+    row-range launches and the captured strip-reversal launches."""
+    import dataclasses as dc
+    from repro_torch.api import Evaluator
+    from repro_torch.core.scores import host_batch, scores_from_result
+    from repro_torch.distributed.batched import evaluate_layouts_sharded
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.distributed.graph_sharded import evaluate_graph_sharded
+    from repro_torch.distributed.pairwise import sharded_crossing_count
+    from repro_torch.kernels import strip_reversal as strip_reversal_mod
+
+    n_v, n_e = pos.shape[0], edges.shape[0]
+    gmesh = make_mesh((world,), ("graph",), device=dev)
+    bmesh = make_mesh((world,), ("batch",), device=dev)
+    emesh = make_mesh((world,), ("eval",), device=dev)
+    xflat = dc.replace(flat, metrics=("edge_crossing", "edge_crossing_angle"))
+    dist_ev = Evaluator(dc.replace(cfg, backend="distributed"), mesh=emesh)
+    runs = {}
+    h = "h1" if world == 1 else "h2"
+    with recording_rows() as rows, \
+            capturing(strip_reversal_mod, "h") as cap:
+        h_run(runs, h, lambda: scores_from_result(
+            evaluate_graph_sharded(gmesh, flat, pos, edges), n_v, n_e))
+        h_run(runs, h + " E_c/E_ca only", lambda: scores_from_result(
+            evaluate_graph_sharded(gmesh, xflat, pos, edges), n_v, n_e))
+        h_run(runs, "h3", lambda: host_batch(evaluate_layouts_sharded(
+            bmesh, tiered, batch, edges), n_v, n_e))
+        if world > 1:
+            h_run(runs, "h3 cut", lambda: host_batch(
+                evaluate_layouts_sharded(bmesh, tiered, batch[:H_CUT],
+                                         edges), n_v, n_e))
+        h_run(runs, "h4", lambda: dist_ev.evaluate(pos, edges))
+        if exact is not None:
+            h_run(runs, "h5", lambda: int(sharded_crossing_count(
+                emesh, *exact)))
+    meshes = {"graph": gmesh, "batch": bmesh, "eval": emesh}
+    return runs, rows.seen, cap.slabs, meshes, dist_ev
+
+
+def h_times(meshes, dist_ev, flat, tiered, pos, edges, batch):
+    """Medians of :data:`REPEATS` CUDA-event-timed calls of (h1)/(h2),
+    (h3) and (h4) on this rank."""
+    from repro_torch.distributed.batched import evaluate_layouts_sharded
+    from repro_torch.distributed.graph_sharded import evaluate_graph_sharded
+    return {
+        "graph_sharded": cuda_ms(lambda: evaluate_graph_sharded(
+            meshes["graph"], flat, pos, edges)),
+        "batch_sharded": cuda_ms(lambda: evaluate_layouts_sharded(
+            meshes["batch"], tiered, batch, edges)),
+        "distributed_evaluate": cuda_ms(lambda: dist_ev.evaluate(pos,
+                                                                 edges))}
+
+
+def h_plans(cfg, pos, edges, batch):
+    """(a)'s flat plan and (b)'s tiered plan, as the main path makes
+    them."""
+    from repro_torch.core import engine
+    return (engine.plan_readability(pos, edges,
+                                    **cfg.plan_kwargs(tier_default=False)),
+            engine.plan_readability(batch, edges, **cfg.plan_kwargs()))
+
+
+def h_host(out):
+    """A run's result as JSON-able host values."""
+    import numpy as np
+    import torch
+    if isinstance(out, int):
+        return out
+
+    def value(v):
+        return np.asarray(v.cpu() if isinstance(v, torch.Tensor)
+                          else v).tolist()
+    return {f: value(getattr(out, f)) for f in INT_FIELDS + FLOAT_FIELDS}
+
+
+def distributed_rank(rank, world, port):
+    """One rank of (h2)-(h5): gloo over ``world`` ranks, this rank on the
+    one card.  Prints one ``RANK`` JSON line: its results, launches, halo
+    exchanges, row-range launches, the largest deviation error of its
+    captured strip-reversal launches against the plain version, and its
+    times."""
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.api import EvalConfig
+    init_group("gloo", rank, world, port)
+    dev = torch.device("cuda", 0)
+    pos, edges, batch = inputs()
+    cfg = EvalConfig(radius=RADIUS, n_strips=N_STRIPS)
+    flat, tiered = h_plans(cfg, pos, edges, batch)
+    epos, eedges = exact_inputs()
+    runs, rows, slabs, meshes, dist_ev = h_paths(
+        world, dev, cfg, pos, edges, batch, flat, tiered,
+        exact=(epos, eedges))
+    err = check_captured(slabs, flat.ideal)
+    times = h_times(meshes, dist_ev, flat, tiered, pos, edges, batch)
+    out = {"rank": rank, "device": str(meshes["graph"].device),
+           "backend": meshes["graph"].backend,
+           "runs": {k: dict(out=h_host(r["out"]), launches=r["launches"],
+                            halo=r["halo"]) for k, r in runs.items()},
+           "rows": rows, "slabs": len(slabs),
+           "slab_shapes": sorted({tuple(a[0].shape) for _, a, _ in slabs}),
+           "rev_err": err, "times": times}
+    print("RANK " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(world):
+    """Run :func:`distributed_rank` on ``world`` ranks (each a fresh
+    ``python3 chip_smoke.py --rank``), each under :data:`H_TIMEOUT`;
+    every rank is stopped before this returns.  Returns their outputs in
+    rank order."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--rank", str(r),
+         "--world", str(world), "--port", str(port)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=H_TIMEOUT))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"(h) rank {r} of {world} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}\n"
+                                 f"{err[-4000:]}")
+        line = [ln for ln in out.splitlines() if ln.startswith("RANK ")]
+        check(bool(line), f"(h) rank {r} printed no result")
+        results.append(json.loads(line[-1][len("RANK "):]))
+    return results
+
+
+def check_h_scores(label, got, want):
+    """Host values of one (h) run against the main path's constants:
+    integers equal, floats at rtol :data:`RTOL`."""
+    for f in INT_FIELDS:
+        check(int(got[f]) == want[f],
+              f"{label}: {f} = {got[f]}, reference {want[f]}")
+    for f in FLOAT_FIELDS:
+        check(abs(float(got[f]) - want[f]) <= RTOL * abs(want[f]),
+              f"{label}: {f} = {got[f]!r}, reference {want[f]!r} "
+              f"(rtol {RTOL})")
+
+
+def h_row_args(kernel, n, pos, epos, eedges, dev):
+    """The row-range kernel's arguments at ``n``, as the row-sharded
+    drivers pad them: (a)'s vertices for the occlusion count, (d)'s
+    edges for the crossing count."""
+    import torch
+    from repro_torch.kernels.ops import _edge_arrays, _pad1
+    if kernel == "occlusion_pairs":
+        p = torch.as_tensor(pos, device=dev)
+        ok = torch.ones(p.shape[0], dtype=torch.bool, device=dev)
+        return [_pad1(p[:, 0].contiguous(), n, 0.0),
+                _pad1(p[:, 1].contiguous(), n, 0.0), _pad1(ok, n, False)]
+    x1, y1, x2, y2, _, v, u, ok = _edge_arrays(
+        torch.as_tensor(epos, device=dev),
+        torch.as_tensor(eedges, device=dev), None)
+    return [_pad1(a, n, f) for a, f in ((x1, 0.0), (y1, 0.0), (x2, 0.0),
+                                         (y2, 0.0), (v, -1), (u, -2),
+                                         (ok, False))]
+
+
+def valid_pairs(ok, rows):
+    """Unordered pairs of valid items with the first in ``rows``: what a
+    row-range launch must test."""
+    import torch
+    after = ok.flip(0).to(torch.float64).cumsum(0).flip(0) - ok.double()
+    r0, r1 = rows
+    return float((after[r0:r1] * ok[r0:r1].double()).sum())
+
+
+def h_row_kernels(launched, pos, epos, eedges, dev, card):
+    """Each row-range launch of (h) (kernel, n, rows) checked once against
+    its plain version on the same arguments, then timed: the kernel alone
+    on the device, its wrapper, its plain version, and its bound from the
+    operations these inputs need on those rows.  Returns the kernels
+    line's entries of the two row-range wrappers, summed over their
+    launches in (h)."""
+    from collections import Counter
+    from repro_torch.kernels.occlusion_pairs import (occlusion_pairs_plain,
+                                                     occlusion_pairs_rows)
+    from repro_torch.kernels.segment_crossing import (crossing_count_plain,
+                                                      crossing_count_rows)
+    import torch
+    rows_seen = Counter(tuple(r) for r in launched)
+    entries = {}
+    for (kernel, n, r0, r1), count in sorted(rows_seen.items()):
+        args = h_row_args(kernel, n, pos, epos, eedges, dev)
+        rows = (r0, r1)
+        if kernel == "occlusion_pairs":
+            radius = RADIUS
+            wrapper = lambda: occlusion_pairs_rows(*args, radius, *rows)
+            plain = lambda: occlusion_pairs_plain(*args, radius, rows=rows)
+            got, want = int(wrapper()), int(plain())
+            torch.cuda.synchronize()
+            ops = (OCC_OPS_PER_PAIR * valid_pairs(args[2], rows)
+                   + OCC_OPS_PER_OCCLUSION * want)
+            b_ms, by = bound(n * 9 + 8, ops)
+            launch = raw_launcher(kernel, args, radius=radius, rows=rows)
+            inner, name = (3 if n > 65536 else 20), "occlusion_pairs_rows"
+        else:
+            x1, y1, x2, y2, v, u, ok = args
+            wrapper = lambda: crossing_count_rows(*args, *rows)
+            plain = lambda: crossing_count_plain(*args, rows=rows)
+            got, want = int(wrapper()), int(plain())
+            torch.cuda.synchronize()
+            straddles = int(crossing_count_plain(
+                x1, y1, x2, y2, *distinct_ids(v.shape, dev), ok, rows=rows))
+            pairs = valid_pairs(ok, rows)
+            ops = (CROSS_OPS_PER_UNORDERED_PAIR * pairs
+                   + CROSS_OPS_PER_STRADDLE * straddles
+                   + CROSS_OPS_PER_CROSSING * want)
+            b_ms, by = bound(n * (4 * 4 + 2 * 4 + 1) + 8, ops)
+            launch = raw_launcher(kernel, args[:4] + [None] + args[4:],
+                                  rows=rows)
+            inner, name = 2, "segment_crossing_rows"
+        check(got == want, f"(h) {name} {(n,)} rows {rows}: kernel {got}, "
+                           f"plain {want}")
+        err = float(abs(got - want))
+        med, lo, hi = device_ms(launch, inner)
+        check_same_result(f"{name} {(n,)} rows {rows}", launch.result(),
+                          wrapper())
+        w_ms = cuda_ms(wrapper, inner=inner)
+        p_ms = cuda_ms(plain, repeats=EXACT_PLAIN_REPEATS)
+        print(f"time {name} ({n},) rows [{r0}, {r1}): device {med:.5f} ms "
+              f"(min {lo:.5f}, max {hi:.5f}; {DEVICE_READINGS} readings of "
+              f"{inner} launches), wrapper {w_ms:.5f} ms, plain {p_ms:.4f} "
+              f"ms, bound {b_ms:.5f} ms ({by}); {count} launches in (h); "
+              f"{want} pairs counted, equal to the plain version; on {card}",
+              flush=True)
+        e = entries.setdefault(name, dict(
+            launches=0, max_abs_err=0.0, ms=0.0, wrapper_ms=0.0,
+            plain_ms=0.0, bound_ms=0.0, by={}))
+        e["launches"] += count
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        for k, val in (("ms", med), ("wrapper_ms", w_ms), ("plain_ms", p_ms),
+                       ("bound_ms", b_ms)):
+            e[k] += val * count
+        e["by"][by] = e["by"].get(by, 0.0) + b_ms * count
+    return entries
+
+
+def h_drills(mesh, dpos, dedges):
+    """(h6): the session's mesh rung on the one-rank mesh
+    (``backend="graph_sharded"``, ``probe_interval=2``) through a lost
+    mesh, the canary probe and auto-restore, a second loss, a rejected
+    probe and the final restore.  Every result equals the fused truth on
+    integers; the breaker's states and every counter are the ones the
+    injected faults make.  Returns the counters."""
+    from repro_torch.api import EvalConfig
+    from repro_torch.launch.faults import FaultPlan
+    from repro_torch.launch.session import EvalSession
+    cfg = EvalConfig(radius=RADIUS, n_strips=DRILL_N_STRIPS,
+                     backend="graph_sharded")
+    truth = EvalSession(dataclasses.replace(cfg, backend="fused"),
+                        device=mesh.device).evaluate(dpos, dedges)
+    sess = EvalSession(cfg, mesh=mesh, probe_interval=2)
+    loss, reject = dict(mesh_loss_dispatches=0), dict(reject_probes=0)
+    steps = ((loss, "open"), ({}, "half_open"), ({}, "closed"),
+             (loss, "open"), ({}, "half_open"), (reject, "open"),
+             ({}, "half_open"), ({}, "closed"))
+    injected = {"mesh_loss_dispatches": 0, "reject_probes": 0}
+    for i, (plan, state) in enumerate(steps):
+        with FaultPlan(**plan) as fp:
+            got = sess.evaluate(dpos, dedges)
+        for k in injected:
+            injected[k] += fp.injected[k]
+        same_ints(f"(h6) step {i}", got, truth)
+        check(sess.health()["breaker_state"] == state,
+              f"(h6) step {i}: breaker {sess.health()['breaker_state']}, "
+              f"want {state}")
+    s = sess.stats
+    faults_in = injected["mesh_loss_dispatches"] + injected["reject_probes"]
+    got = {k: s[k] for k in ("degraded_dispatches", "breaker_opens",
+                             "probes", "auto_restores",
+                             "graph_sharded_dispatches", "quarantined",
+                             "dispatch_failures")}
+    want = {"degraded_dispatches": faults_in, "breaker_opens": faults_in,
+            "probes": 3, "auto_restores": 2, "graph_sharded_dispatches": 2,
+            "quarantined": 0, "dispatch_failures": 0}
+    check(injected == {"mesh_loss_dispatches": 2, "reject_probes": 1}
+          and got == want, f"(h6) injected {injected}, counters {got}, "
+                           f"want {want}")
+    check(sess.health()["dispatch_mode"] == "graph_sharded",
+          f"(h6) {sess.health()['dispatch_mode']}")
+    return got, injected
+
+
+def distributed_phase(cfg, pos, edges, batch, epos, eedges, dpos, dedges,
+                      ev, b_launches, card):
+    """(h): the distributed paths.  (h1), (h3), (h4) and (h6) on a one-rank
+    NCCL group in this process; (h2)-(h5) on :data:`H_WORLD` ranks over
+    gloo, each a process of its own on the one card.  Every check of the
+    phase docstring; prints the runs, launches and times.  Returns the
+    kernels line's row-range entries and (h)'s strip-reversal launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import engine
+    t0 = time.perf_counter()
+    init_group("nccl", 0, 1, free_port())
+    try:
+        dev = torch.device("cuda", 0)
+        flat, tiered = h_plans(cfg, pos, edges, batch)
+        runs, rows, slabs, meshes, dist_ev = h_paths(
+            1, dev, cfg, pos, edges, batch, flat, tiered)
+        rev_err = check_captured(slabs, flat.ideal)
+        print(f"(h) this process: backend {meshes['graph'].backend}, world "
+              f"1, rank 0 on {meshes['graph'].device}", flush=True)
+        n_axes = len(flat.axes)
+        host = {k: h_host(r["out"]) for k, r in runs.items()}
+        single = h_host(engine.evaluate_planned(flat, pos, edges,
+                                                device=dev))
+        for f in INT_FIELDS:
+            check(host["h1"][f] == single[f],
+                  f"(h1) {f} = {host['h1'][f]}, single-device fused engine "
+                  f"{single[f]}")
+        check_h_scores("(h1) graph-sharded, 1 rank", host["h1"],
+                       REFERENCE["fused"])
+        check((runs["h1"]["halo"], runs["h1 E_c/E_ca only"]["halo"])
+              == (1, 0), f"(h1) halo exchanges "
+                         f"{runs['h1']['halo']} and "
+                         f"{runs['h1 E_c/E_ca only']['halo']}, want 1 and 0")
+        check(host["h1 E_c/E_ca only"]["edge_crossing"]
+              == REFERENCE["fused"]["edge_crossing"], "(h1) E_c only")
+        for i in range(BATCH):
+            check_h_scores(f"(h3)[{i}] batch-sharded, 1 rank",
+                           {f: v[i] for f, v in host["h3"].items()},
+                           REFERENCE["batch"][i])
+        check_h_scores("(h4) distributed, 1 rank", host["h4"],
+                       REFERENCE["fused"])
+        want_l = {"h1": dict(strip_reversal=n_axes),
+                  "h1 E_c/E_ca only": dict(strip_reversal=n_axes),
+                  "h3": dict(strip_reversal=b_launches),
+                  "h4": dict(strip_reversal=n_axes, occlusion_pairs_rows=1)}
+        for k, want in want_l.items():
+            got = {n: c for n, c in runs[k]["launches"].items() if c}
+            check(got == want, f"({k}) launched {got}, want {want}")
+        drills, injected = h_drills(meshes["graph"], dpos, dedges)
+        print(f"(h6) mesh drills on the one-rank NCCL mesh: injected "
+              f"{injected}, counters {drills}", flush=True)
+
+        ranks = spawn_ranks(H_WORLD)
+        for r in ranks:
+            launched = {k: {n: c for n, c in v["launches"].items() if c}
+                        for k, v in r["runs"].items()}
+            print(f"(h) rank {r['rank']} of {H_WORLD}: backend "
+                  f"{r['backend']} on {r['device']}; launches {launched}; "
+                  f"strip_reversal slabs {r['slab_shapes']}", flush=True)
+            check(r["backend"] == "gloo", f"(h) rank backend {r['backend']}")
+            check(all(r["runs"][k]["out"] == ranks[0]["runs"][k]["out"]
+                      for k in r["runs"]),
+                  f"(h) rank {r['rank']}'s results differ from rank 0's")
+            out = {k: v["out"] for k, v in r["runs"].items()}
+            lab = f"rank {r['rank']} of {H_WORLD}"
+            for f in INT_FIELDS:
+                check(out["h2"][f] == host["h1"][f],
+                      f"(h2) {lab}: {f} = {out['h2'][f]}, (h1) "
+                      f"{host['h1'][f]}")
+            for f in FLOAT_FIELDS:
+                check(abs(out["h2"][f] - host["h1"][f])
+                      <= RTOL * abs(host["h1"][f]),
+                      f"(h2) {lab}: {f} = {out['h2'][f]!r}, (h1) "
+                      f"{host['h1'][f]!r}")
+            check((r["runs"]["h2"]["halo"],
+                   r["runs"]["h2 E_c/E_ca only"]["halo"]) == (1, 0),
+                  f"(h2) {lab}: halo exchanges")
+            for i in range(BATCH):
+                check_h_scores(f"(h3)[{i}] {lab}",
+                               {f: v[i] for f, v in out["h3"].items()},
+                               REFERENCE["batch"][i])
+            for i in range(H_CUT):
+                check_h_scores(f"(h3) cut of {H_CUT} [{i}] {lab}",
+                               {f: v[i] for f, v in out["h3 cut"].items()},
+                               REFERENCE["batch"][i])
+            check_h_scores(f"(h4) {lab}", out["h4"], REFERENCE["fused"])
+            check(out["h5"] == EXACT_REFERENCE["edge_crossing"],
+                  f"(h5) {lab}: E_c {out['h5']}, (d) "
+                  f"{EXACT_REFERENCE['edge_crossing']}")
+            got_l = {k: {n: c for n, c in v["launches"].items() if c}
+                     for k, v in r["runs"].items()}
+            check(got_l["h4"].get("occlusion_pairs_rows") == 1
+                  and got_l["h5"] == {"segment_crossing_rows": 1}
+                  and got_l["h2"] == {"strip_reversal": n_axes}
+                  and got_l["h4"].get("strip_reversal") == n_axes,
+                  f"(h) {lab} launched {got_l}")
+            rev_err = max(rev_err, r["rev_err"])
+        rows_all = [tuple(x) for x in rows] + [
+            tuple(x) for r in ranks for x in r["rows"]]
+        rev_launches = len(slabs) + sum(r["slabs"] for r in ranks)
+        print(f"(h) strip_reversal: {rev_launches} launches in (h) "
+              f"({len(slabs)} here, {[r['slabs'] for r in ranks]} on the "
+              f"ranks), each "
+              f"equal to its plain version (max abs dev err {rev_err}); "
+              f"row-range launches {sorted(rows_all)}", flush=True)
+        print("distributed paths: ok, (h1)-(h6) equal to the JAX reference "
+              f"constants (ints exact, floats rtol {RTOL}), one halo "
+              "exchange per graph-sharded evaluation, none without N_c",
+              flush=True)
+
+        times = h_times(meshes, dist_ev, flat, tiered, pos, edges, batch)
+        base = {
+            "graph_sharded": cuda_ms(lambda: engine.evaluate_planned(
+                flat, pos, edges, device=dev)),
+            "batch_sharded": cuda_ms(lambda: engine.evaluate_layouts(
+                tiered, batch, edges, device=dev)),
+            "distributed_evaluate": cuda_ms(lambda: ev.evaluate(pos, edges))}
+        labels = {"graph_sharded": ("(h1) evaluate_graph_sharded",
+                                    "evaluate_planned, same flat plan"),
+                  "batch_sharded": (f"(h3) evaluate_layouts_sharded B={BATCH}",
+                                    "evaluate_layouts, same plan"),
+                  "distributed_evaluate": (
+                      "(h4) Evaluator(backend='distributed').evaluate",
+                      "(a) Evaluator(cfg).evaluate")}
+        for k, (what, single_what) in labels.items():
+            print(f"time {what}, 1 rank (NCCL): {times[k]:.3f} ms; single "
+                  f"device {single_what}: {base[k]:.3f} ms (medians of "
+                  f"{REPEATS}, CUDA events) on {card}", flush=True)
+        for r in ranks:
+            print(f"time rank {r['rank']} of {H_WORLD} (gloo, both ranks on "
+                  f"the one card, so no speedup): "
+                  f"{ {k: round(v, 3) for k, v in r['times'].items()} } ms "
+                  f"(medians of {REPEATS}, CUDA events) on {card}",
+                  flush=True)
+        entries = h_row_kernels(rows_all, pos, epos, eedges, dev, card)
+        check(set(entries) == {"occlusion_pairs_rows",
+                               "segment_crossing_rows"},
+              f"(h) row-range kernels launched: {sorted(entries)}")
+    finally:
+        dist.destroy_process_group()
+    print(f"time (h) the distributed phase: {time.perf_counter() - t0:.2f} "
+          f"s (wall, the ranks' start and the row-range timings included)",
+          flush=True)
+    return entries, rev_launches
+
+
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--rank"]:
+        # a rank of phase (h)'s gloo group, started by spawn_ranks
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        return distributed_rank(int(args["--rank"]), int(args["--world"]),
+                                int(args["--port"]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -1972,6 +2540,11 @@ def main() -> int:
           f"recorded launches {dict(launched)}, counted "
           f"{dict(total_launches)}")
 
+    # (h) the distributed paths, with their own launch counts and checks
+    row_entries, h_rev_launches = distributed_phase(
+        cfg, pos, edges, batch, epos, eedges, dpos, dedges, ev,
+        launches["b"][0], card)
+
     # -- 4. timings --------------------------------------------------------
     path_ms = {
         "a": cuda_ms(lambda: ev.evaluate(pos, edges)),
@@ -2148,10 +2721,24 @@ def main() -> int:
              launches=total_launches["crossing_angle_sum"],
              max_abs_err=angle_err, **angle, library_ms=None),
     ]
+    for name, src_name in (("occlusion_pairs_rows", "occlusion_pairs"),
+                           ("segment_crossing_rows", "segment_crossing")):
+        where = next(k["replaces"] for k in kernels if k["name"] == src_name)
+        e = row_entries[name]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src_name}.cu",
+            replaces=where, launches=e["launches"],
+            max_abs_err=e["max_abs_err"], ms=e["ms"],
+            wrapper_ms=e["wrapper_ms"], plain_ms=e["plain_ms"],
+            bound_ms=e["bound_ms"], bound_by=max(e["by"], key=e["by"].get),
+            library_ms=None))
     print("kernel times are summed over every launch of one pass of "
-          "(a)-(g); launches are counted in that pass; ms is the kernel "
-          "alone on the device (median), wrapper_ms the wrapper's call",
-          flush=True)
+          "(a)-(g), the row-range entries over (h)'s launches (parent and "
+          "ranks); launches are counted in those runs (strip_reversal's "
+          f"{h_rev_launches} launches in (h) are checked there and not "
+          "added); ms is the kernel alone on the device (median), "
+          "wrapper_ms the wrapper's call", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

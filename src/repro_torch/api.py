@@ -10,10 +10,13 @@
 >>> exact = evaluate_exact(pos, edges, config=EvalConfig(radius=0.5))
 
 Backends served: ``"fused"`` (plan-cached session, shape-bucketed),
-``"eager"`` (plan per call) and ``"kernels"`` (flat strip buckets and the
-exact all-pairs occlusion kernel).  ``"distributed"``,
-``"graph_sharded"`` and ``precision="bfloat16"`` are accepted by
-:class:`EvalConfig` (its digest needs them) but raise
+``"eager"`` (plan per call), ``"kernels"`` (flat strip buckets and the
+exact all-pairs occlusion kernel), ``"distributed"`` (over a mesh of
+``torch.distributed`` ranks: row-sharded N_c and strip-sharded E_c /
+E_ca for one layout, the batch axis for a batch) and ``"graph_sharded"``
+(each layout spatially partitioned over the mesh, through the session's
+degradation ladder).  ``precision="bfloat16"`` is accepted by
+:class:`EvalConfig` (its digest needs it) but raises
 ``NotImplementedError`` here.
 :meth:`Evaluator.register_layout` / :meth:`Evaluator.update` serve
 dynamic layouts (incremental on ``"fused"``); :meth:`Evaluator.search`
@@ -28,6 +31,15 @@ S3.1), the ground truth of the enhanced metrics.
 device exists; pass ``device="cpu"`` to run on the CPU.  The device is
 not a config field, so ``EvalConfig`` and its ``digest()`` are the
 reference's.
+
+**Ranks**: on the mesh backends every rank runs the same program on the
+same inputs, one process per rank, and gets the same scores:
+
+>>> import torch.distributed as dist
+>>> dist.init_process_group("nccl", init_method="tcp://localhost:29500",
+...                         rank=rank, world_size=world)   # each process
+>>> ev = Evaluator(EvalConfig(backend="distributed"))      # serving_mesh()
+>>> scores = ev.evaluate(pos, edges)
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from __future__ import annotations
 from collections import OrderedDict
 
 import numpy as np
+import torch
 
 from repro_torch.core import engine
 from repro_torch.core.engine import ALL_METRICS  # noqa: F401  (re-export)
@@ -66,7 +79,10 @@ __all__ = [
     "topology_hash", "validate_batch", "validate_request",
 ]
 
-SERVED_BACKENDS = ("fused", "eager", "kernels")
+SERVED_BACKENDS = ("fused", "eager", "kernels", "distributed",
+                   "graph_sharded")
+# backends an EvalSession serves (the rest are served by the Evaluator)
+SESSION_BACKENDS = ("fused", "kernels", "graph_sharded")
 
 
 class Evaluator:
@@ -76,28 +92,41 @@ class Evaluator:
       :class:`~repro_torch.core.engine.ReadabilityPlan` from concrete data.
     * :meth:`evaluate` -- one layout -> host
       :class:`~repro_torch.core.scores.ReadabilityScores`.  On the fused /
-      kernels backends an internal :class:`EvalSession` serves it (plan
-      cache, pow2 shape buckets, auto-replan on overflow);
-      ``backend="eager"`` plans per call.
+      kernels / graph_sharded backends an internal :class:`EvalSession`
+      serves it (plan cache, pow2 shape buckets, auto-replan on overflow,
+      and for graph_sharded the mesh rung with its fall-back to fused);
+      ``backend="eager"`` plans per call; ``"distributed"`` runs
+      :func:`~repro_torch.distributed.gridded.evaluate_sharded` over the
+      mesh.
     * :meth:`evaluate_batch` -- ``(B, V, 2)`` candidate layouts of ONE
-      graph in one batched pass -> batched host scores (``.unbatch()``).
+      graph in one batched pass -> batched host scores (``.unbatch()``);
+      on ``"distributed"`` the batch axis splits over the mesh
+      (:func:`~repro_torch.distributed.batched.evaluate_layouts_sharded`).
     * :meth:`register_layout` / :meth:`update` -- dynamic layouts: score
       once, then re-score small vertex moves.  ``"fused"`` re-derives only
       the dirty grid cells and strips (the bound session's resident state,
       :mod:`repro_torch.core.incremental`; integer metrics equal a
-      from-scratch evaluation); ``"kernels"`` delegates to the session,
-      which re-evaluates every update in full; ``"eager"`` keeps the
-      layout on the host and re-evaluates it in full.
-    * :meth:`session` -- a fresh :class:`EvalSession` on the same config
-      and device; ``**knobs`` are its serving-policy knobs, the overload
-      knobs (``max_queue``, ``default_deadline``, ``dispatch_timeout``,
-      ...) included.
+      from-scratch evaluation); ``"kernels"`` and ``"graph_sharded"``
+      delegate to the session, which re-evaluates every update in full;
+      ``"eager"`` and ``"distributed"`` keep the layout on the host and
+      re-evaluate it in full.
+    * :meth:`session` -- a fresh :class:`EvalSession` on the same config,
+      device and mesh; ``**knobs`` are its serving-policy knobs, the
+      overload knobs (``max_queue``, ``default_deadline``,
+      ``dispatch_timeout``, ``probe_interval``, ...) included.
     * :meth:`search` -- gradient-guided layout search from a seed layout
       (:class:`~repro_torch.search.gradient.GradientSearch` on this
-      config and device).
+      config, device and mesh).
+
+    ``mesh`` is the :class:`~repro_torch.distributed.compat.Mesh` of the
+    mesh backends; without one they bring one up on first use
+    (:meth:`_mesh`, the serving policy
+    :func:`~repro_torch.launch.elastic.serving_mesh`, capped by
+    ``EvalConfig.shards``).  With a mesh, ``device`` defaults to
+    ``mesh.device``.
     """
 
-    def __init__(self, config: EvalConfig = None, *, device=None,
+    def __init__(self, config: EvalConfig = None, *, mesh=None, device=None,
                  cache_size: int = 128, vertex_floor: int = 128,
                  edge_floor: int = 128, max_coalesce: int = 32,
                  update_dirty_threshold: float = 0.25):
@@ -110,16 +139,19 @@ class Evaluator:
             raise NotImplementedError(
                 f"precision={self.config.precision!r} is not ported to "
                 "repro_torch yet; it evaluates in float32")
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = engine.resolve_device(device)
+        self.mesh = mesh
         self._session = None
         self._session_knobs = dict(cache_size=cache_size,
                                    vertex_floor=vertex_floor,
                                    edge_floor=edge_floor,
                                    max_coalesce=max_coalesce,
                                    update_dirty_threshold=update_dirty_threshold)
-        # dynamic layouts on the eager backend: (pos, edges) per layout
-        # id, every update a full re-evaluation (the incremental path
-        # needs the session's resident state)
+        # dynamic layouts on the eager and distributed backends: (pos,
+        # edges) per layout id, every update a full re-evaluation (the
+        # incremental path needs the session's resident state)
         self._layouts = {}
 
     def __repr__(self):
@@ -131,28 +163,47 @@ class Evaluator:
                                        **self.config.plan_kwargs())
 
     def session(self, **knobs) -> EvalSession:
-        """A fresh serving session bound to this config and device."""
+        """A fresh serving session bound to this config, device and mesh
+        (a session with a mesh shards coalesced batches over it)."""
         return EvalSession(self.config, device=self.device,
-                           **{**self._session_knobs, **knobs})
+                           **{"mesh": self.mesh, **self._session_knobs,
+                              **knobs})
 
     def _bound_session(self) -> EvalSession:
         if self._session is None:
             self._session = self.session()
         return self._session
 
+    def _mesh(self):
+        """This evaluator's mesh, brought up on first use by the serving
+        policy (every rank of the default group, capped by
+        ``EvalConfig.shards``, trimmed to a power of two)."""
+        if self.mesh is None:
+            from repro_torch.launch.elastic import serving_mesh
+            self.mesh = serving_mesh("eval", shards=self.config.shards,
+                                     device=self.device)
+        return self.mesh
+
     def evaluate(self, pos, edges) -> ReadabilityScores:
         """Score one layout; returns host scores (one copy).  Requests are
         checked per ``EvalConfig.validation`` on every backend."""
-        if self.config.backend in ("fused", "kernels"):
+        backend = self.config.backend
+        if backend in SESSION_BACKENDS:
             return self._bound_session().evaluate(pos, edges)
         pos, edges, flags = validate_request(
             pos, edges, mode=self.config.validation)
         pos = np.asarray(pos, np.float32)
         edges = np.asarray(edges, np.int32)
         n_v, n_e = pos.shape[0], edges.shape[0]
-        # eager: plan from the concrete layout (flat strips) and run the
-        # fused program once.  Degenerate requests (V=0 / E=0) pad to one
-        # row and mask it via the n_valid scalars.
+        if backend == "distributed" and n_v > 0 and n_e > 0:
+            from repro_torch.distributed.gridded import evaluate_sharded
+            scores = evaluate_sharded(self._mesh(), pos, edges,
+                                      config=self.config)
+            return scores if flags is None else scores._replace(flags=flags)
+        # eager (and a degenerate distributed request, where a mesh buys
+        # nothing): plan from the concrete layout (flat strips) and run
+        # the fused program once.  Degenerate requests (V=0 / E=0) pad to
+        # one row and mask it via the n_valid scalars.
         plan = engine.plan_readability(
             pos, edges, **self.config.plan_kwargs(tier_default=False))
         valid = {}
@@ -172,9 +223,10 @@ class Evaluator:
         """Register a dynamic layout for :meth:`update` streams: validate
         and evaluate ``pos`` once and return its scores.  On the session
         backends the bound :class:`EvalSession` also primes the resident
-        partials (``"fused"``); on ``"eager"`` the layout is kept on the
-        host and every update is a full re-evaluation."""
-        if self.config.backend in ("fused", "kernels"):
+        partials (``"fused"``); on ``"eager"`` and ``"distributed"`` the
+        layout is kept on the host and every update is a full
+        re-evaluation."""
+        if self.config.backend in SESSION_BACKENDS:
             return self._bound_session().register_layout(layout_id, pos,
                                                          edges)
         scores = self.evaluate(pos, edges)
@@ -187,8 +239,8 @@ class Evaluator:
         re-score.  Session backends route through
         :meth:`EvalSession.update` (incremental when the dirty set is
         small; ``scores.flags["incremental"]`` certifies the path taken);
-        ``"eager"`` re-evaluates in full."""
-        if self.config.backend in ("fused", "kernels"):
+        ``"eager"`` and ``"distributed"`` re-evaluate in full."""
+        if self.config.backend in SESSION_BACKENDS:
             return self._bound_session().update(layout_id, moved_idx,
                                                 new_pos)
         if layout_id not in self._layouts:
@@ -227,10 +279,39 @@ class Evaluator:
         batch_pos, edges, flags = validate_batch(
             batch_pos, edges, mode=self.config.validation)
         n_v, n_e = batch_pos.shape[1], edges.shape[0]
+        backend = self.config.backend
+        degenerate = n_v == 0 or n_e == 0
+        if backend == "graph_sharded" and not degenerate:
+            # spatial partitioning is per layout: each member is the
+            # sharded unit, so the batch axis is a loop of graph-sharded
+            # dispatches on one flat plan (every rank sweeps the flat top
+            # capacity)
+            from repro_torch.distributed.graph_sharded import \
+                evaluate_graph_sharded
+            if plan is None:
+                plan = engine.plan_readability(
+                    batch_pos, edges,
+                    **self.config.plan_kwargs(tier_default=False))
+            results = [evaluate_graph_sharded(self._mesh(), plan, member,
+                                              edges)
+                       for member in batch_pos]
+            res = ReadabilityScores(*(
+                None if results[0][k] is None
+                else torch.stack([r[k] for r in results])
+                for k in range(len(ReadabilityScores._fields))))
+            return host_batch(res, n_v, n_e, flags)
         if plan is None:
             plan = self.plan(batch_pos, edges)
+        if backend == "distributed" and not degenerate:
+            from repro_torch.distributed.batched import \
+                evaluate_layouts_sharded
+            res = evaluate_layouts_sharded(self._mesh(), plan, batch_pos,
+                                           edges)
+            return host_batch(res, n_v, n_e, flags)
         valid = {}
-        if n_v == 0 or n_e == 0:
+        if degenerate:
+            # pad to the engine's one-row minimum and mask the padding;
+            # a mesh buys nothing at this size
             batch_pos, edges = _pad_degenerate(batch_pos, edges)
             valid = dict(n_valid_vertices=n_v, n_valid_edges=n_e)
         res = engine.evaluate_layouts(plan, batch_pos, edges,
@@ -250,8 +331,10 @@ class Evaluator:
         keywords (``steps``, ``restarts``, ``rescore_every``, ``opt``,
         ``weights``, ``temperature``, ...).  Returns a
         :class:`SearchResult` of exact scores; ``result.best_positions``
-        is the winning layout."""
+        is the winning layout.  On ``"distributed"`` each step splits the
+        restarts over this evaluator's mesh."""
         knobs.setdefault("device", self.device)
+        knobs.setdefault("mesh", self.mesh)
         return GradientSearch(self.config, **knobs).run(pos0, edges)
 
 

@@ -498,6 +498,162 @@ def evaluate_layouts(plan: ReadabilityPlan, batch_pos, edges,
         for k in range(len(ReadabilityScores._fields))))
 
 
+# ---------------------------------------------------------------------------
+# graph-axis sharding: ONE layout spatially partitioned over a mesh
+# ---------------------------------------------------------------------------
+
+def _shard_occlusion(plan: ReadabilityPlan, pos, vertex_valid, mesh):
+    """This rank's slice of the occlusion sweep: owned-cell buckets, one
+    one-sided halo exchange, forward-neighbourhood pair count.
+
+    The rank buckets only the vertices whose cell falls in its owned
+    contiguous flat-cell range (the single-host bucketing and its
+    keep-first-``cap`` drop rule, so kept sets match per cell).  The
+    forward offsets (:data:`~repro_torch.core.grid.FORWARD_NEIGHBOURHOOD`)
+    read at most ``nx + 1`` cells ahead, all in the halo slab received
+    from the next rank: every cross-boundary pair is counted once, by the
+    rank owning its lower-id cell.  Returns the local ``(count,
+    overflow)`` (before the sum over ranks)."""
+    from repro_torch.core.occlusion import _sweep_rows
+    from repro_torch.distributed.collectives import halo_exchange
+
+    spec = gridlib.GraphShardSpec(*plan.graph_shard)
+    nx, ny = plan.grid_nx, plan.grid_ny
+    n_cells = nx * ny
+    per_c, H, cap = spec.cells_per_shard, spec.halo_cells, plan.cell_cap
+    dev = pos.device
+
+    gridlib.CALL_COUNTS["cell_builds"] += 1
+    _, _, cid = gridlib.cell_indices(pos, plan.radius, plan.grid_origin,
+                                     nx, ny, cell_size=plan.grid_cell_size)
+    c0 = mesh.rank * per_c
+    local = cid - c0
+    own = (local >= 0) & (local < per_c)
+    if vertex_valid is not None:
+        own = own & vertex_valid
+    x, y, bval, _, overflow = gridlib.gather_ragged_buckets(
+        local[None], per_c, np.arange(per_c, dtype=np.int64) * cap,
+        np.full(per_c, cap, np.int64), pos[None, :, 0], pos[None, :, 1],
+        valid=own[None])
+    x = x.reshape(per_c, cap)
+    y = y.reshape(per_c, cap)
+    bval = bval.reshape(per_c, cap)
+
+    # ONE one-sided exchange: the halo (the H cells after the owned
+    # range) is a prefix of the next rank's owned range by plan
+    # construction, so its bucket rows arrive ready-made; wrap-around
+    # and past-the-grid halo rows are killed by the global-id mask
+    hx, hy, hv = halo_exchange(mesh, (x[:H], y[:H], bval[:H]))
+    halo_gid = c0 + per_c + torch.arange(H, device=dev)
+    hv = hv & (halo_gid < n_cells)[:, None]
+    xt = torch.cat([x, hx])
+    yt = torch.cat([y, hy])
+    vt = torch.cat([bval, hv])
+
+    # forward-neighbourhood ids, local to the concatenated table
+    lidx = torch.arange(per_c, device=dev)
+    gcid = c0 + lidx
+    gx, gy = gcid % nx, gcid // nx
+    exists = gcid < n_cells
+    ids, oks = [], []
+    for dx, dy in gridlib.FORWARD_NEIGHBOURHOOD:
+        ids.append(lidx + dy * nx + dx)
+        oks.append(exists & (gx + dx >= 0) & (gx + dx < nx)
+                   & (gy + dy < ny))
+    nbr_idx = torch.clamp(torch.stack(ids, dim=1), 0, per_c + H - 1)
+    nbr_ok = torch.stack(oks, dim=1)
+    thresh = torch.tensor((2.0 * plan.radius) ** 2, dtype=pos.dtype,
+                          device=dev)
+    per_row = _sweep_rows(xt, yt, vt, nbr_idx, nbr_ok, thresh)
+    return per_row.sum(), overflow[0]
+
+
+def evaluate_graph_shard_body(plan: ReadabilityPlan, pos, edges, *, mesh,
+                              n_valid_vertices=None,
+                              n_valid_edges=None) -> ReadabilityScores:
+    """The per-rank program of ``backend="graph_sharded"``: ONE layout
+    spatially partitioned over ``mesh`` (every rank runs it on the full,
+    replicated inputs and gets the summed totals).
+
+    Rank ``i`` (ranges from ``plan.graph_shard``, a
+    :class:`~repro_torch.core.grid.GraphShardSpec`):
+
+    * **strips** (E_c / E_ca): builds the strip segments (an O(E) clip,
+      replicated), buckets and sweeps only strips ``[i *
+      strips_per_shard, ...)`` through
+      :func:`~repro_torch.kernels.strip_reversal.strip_reversal_rows`
+      (the kernel on CUDA), then sums (count, deviation) over the ranks;
+    * **occlusion** (N_c): contiguous cell ranges with ONE halo exchange
+      (:func:`_shard_occlusion`);
+    * **M_a / M_l**: replicated, the single-host calls.
+
+    Integer metrics equal the single-host fused path's under the same
+    flat plan and do not depend on the rank count; E_ca's deviation sum
+    may differ in summation order only.  The inputs go to
+    ``mesh.device``."""
+    if plan.graph_shard is None:
+        raise ValueError("evaluate_graph_shard_body needs a plan with "
+                         "graph_shard set (see grid.plan_graph_shards)")
+    from repro_torch.distributed.collectives import psum
+
+    pos, edges = device_inputs(pos, edges, mesh.device, plan.dtype)
+    dev = pos.device
+    spec = gridlib.GraphShardSpec(*plan.graph_shard)
+    vertex_valid = _valid_mask(pos.shape[0], n_valid_vertices, dev)
+    edge_valid = _valid_mask(edges.shape[0], n_valid_edges, dev)
+    m = plan.metrics
+    out = {}
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+
+    if "node_occlusion" in m:
+        cnt, ov = _shard_occlusion(plan, pos, vertex_valid, mesh)
+        out["node_occlusion"] = psum(mesh, cnt)
+        overflow = overflow + psum(mesh, ov)
+    if "minimum_angle" in m:
+        out["minimum_angle"], _ = minimum_angle(pos, edges,
+                                                edge_valid=edge_valid)
+    if "edge_length_variation" in m:
+        out["edge_length_variation"] = edge_length_variation(
+            pos, edges, edge_valid=edge_valid)
+
+    want_ec = "edge_crossing" in m
+    want_eca = "edge_crossing_angle" in m
+    if want_ec or want_eca:
+        per_s = spec.strips_per_shard
+        s0 = mesh.rank * per_s
+        first_slot = np.arange(per_s, dtype=np.int64)
+        stats = []
+        for axis, (max_segments, cap) in zip(plan.axes, plan.strip_plans):
+            segs = gridlib.build_strip_segments(
+                pos, edges, plan.n_strips, max_segments, axis=axis,
+                edge_valid=edge_valid)
+            lkey = segs.strip - s0
+            # segs.valid matters beyond masking padding: the trash strip
+            # id (n_strips) can fall inside the LAST rank's local range
+            own = segs.valid & (lkey >= 0) & (lkey < per_s)
+            yl, yr, th, v, u, ok, _, drop = gridlib.gather_ragged_buckets(
+                lkey[None], per_s, first_slot * cap,
+                np.full(per_s, cap, np.int64), segs.yl[None],
+                segs.yr[None], segs.theta[None], segs.v[None],
+                segs.u[None], valid=own[None])
+            gridlib.CALL_COUNTS["reversal_sweeps"] += 1
+
+            def rows(a, dtype=None):
+                a = a.reshape(per_s, cap)
+                return (a if dtype is None else a.to(dtype)).contiguous()
+
+            rc, rd = strip_reversal_rows(
+                rows(yl), rows(yr), rows(th), rows(v, torch.int32),
+                rows(u, torch.int32), rows(ok), ideal=plan.ideal,
+                with_angle=want_eca, row_block=min(plan.strip_block, per_s))
+            # segs.overflow is replicated: added once, outside the sum
+            stats.append((psum(mesh, rc.sum()), psum(mesh, rd.sum()),
+                          psum(mesh, drop[0]) + segs.overflow))
+        overflow = overflow + _combine(stats, want_ec, want_eca, out)
+
+    return ReadabilityScores(overflow=overflow, **out)
+
+
 def replan_on_overflow(plan: ReadabilityPlan, pos, edges, result,
                        *, growth: float = 1.5) -> ReadabilityPlan:
     """Grow ``plan`` when ``result`` reports capacity overflow.

@@ -29,9 +29,22 @@ import torch
 # use these four directed offsets.
 HALF_NEIGHBOURHOOD = ((1, 0), (0, 1), (1, 1), (1, -1))
 
+# The same unordered pair set with every offset pointing *forward* in
+# flat-id order: (1, -1) is replaced by its mirror (-1, 1), which pairs
+# the same cells from the other endpoint.  With row-major flat ids every
+# neighbour then lives at ``c + {1, nx-1, nx, nx+1}``, strictly ahead of
+# ``c``, so a contiguous-range cell partition needs exactly ONE one-sided
+# halo of ``nx + 1`` cells from the next shard.  ``(a-b)^2 == (b-a)^2``
+# bitwise, so the forward sweep counts what the half-neighbourhood sweep
+# counts.
+FORWARD_NEIGHBOURHOOD = ((1, 0), (-1, 1), (0, 1), (1, 1))
+
 # Work counters, bumped at the reference's bump points (once per call
 # here: nothing is traced).  The metric-subset tests use them to prove
-# pruned configs never build the decompositions they do not need.
+# pruned configs never build the decompositions they do not need;
+# ``halo_exchanges`` certifies the graph-sharded path's collective
+# budget: one boundary-cell exchange per evaluation, none for strip-only
+# metric subsets.
 CALL_COUNTS = {"strip_builds": 0, "reversal_sweeps": 0, "cell_builds": 0,
                "vertex_sorts": 0, "halo_exchanges": 0}
 
@@ -76,6 +89,22 @@ class StripSegments(NamedTuple):
     valid: torch.Tensor    # (S,) bool
     overflow: torch.Tensor  # () segments dropped by max_segments budget
     eid: torch.Tensor = None
+
+
+class GraphShardSpec(NamedTuple):
+    """Static per-rank partition of ONE layout's decompositions.
+
+    Shard ``i`` owns strips ``[i * strips_per_shard, ...)`` and the
+    contiguous flat-cell range ``[i * cells_per_shard, ...)``; ranges past
+    the real strip / cell counts are empty.  The halo is the
+    ``halo_cells`` flat cells right after the owned range, a prefix of the
+    next shard's range because :func:`plan_graph_shards` keeps
+    ``cells_per_shard >= halo_cells``.  Plain ints: hashable plan data."""
+
+    n_shards: int
+    strips_per_shard: int
+    cells_per_shard: int
+    halo_cells: int
 
 
 class SegmentBuckets(NamedTuple):
@@ -519,6 +548,23 @@ def plan_strips(pos, edges, n_strips: int, pad: float = 1.25,
                                                    pad=pad, axis=axis)
     cap = _round_up(int(per_strip.max() * pad) + 8, cap_multiple)
     return max_segments, cap
+
+
+def plan_graph_shards(n_strips: int, nx: int, ny: int,
+                      n_shards: int) -> GraphShardSpec:
+    """Partition strips and grid cells contiguously over ``n_shards``.
+
+    ``cells_per_shard`` is at least ``nx + 1`` (the halo width): the
+    forward-neighbourhood sweep of owned cell ``c`` reads at most
+    ``c + nx + 1``, so a halo that is a prefix of the next shard's range
+    covers every cross-boundary pair with one one-sided exchange.
+    Trailing shards whose ranges fall past the end own nothing."""
+    n_shards = max(1, int(n_shards))
+    halo = int(nx) + 1
+    strips_per = -(-int(n_strips) // n_shards)
+    cells_per = max(-(-(int(nx) * int(ny)) // n_shards), halo)
+    return GraphShardSpec(n_shards=n_shards, strips_per_shard=strips_per,
+                          cells_per_shard=cells_per, halo_cells=halo)
 
 
 def _next_pow2(n: int, floor: int = 8) -> int:

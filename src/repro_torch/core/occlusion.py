@@ -47,15 +47,18 @@ def _cross_count(bx, by, bv, cx, cy, cv, thresh):
 
 
 def _sweep_rows(x, y, bval, nbr_idx, nbr_ok, thresh):
-    """Per-row occluded-pair counts of ``(rows, cap)`` buckets: same-cell
-    pairs (i < j) plus the four half-neighbourhood buckets."""
-    rows, cap = x.shape
+    """Per-row occluded-pair counts of the first ``rows`` of ``(n, cap)``
+    buckets, ``rows = nbr_idx.shape[0]``: same-cell pairs (i < j) plus the
+    four neighbour buckets ``nbr_idx`` names (rows of the same table; a
+    graph shard's table ends with its halo rows, which it does not
+    sweep)."""
+    rows, cap = nbr_idx.shape[0], x.shape[1]
     tri = torch.triu(torch.ones(cap, cap, dtype=torch.bool,
                                 device=x.device), diagonal=1)
     block = max(1, min(rows, _PAIR_BUDGET // max(5 * cap * cap, 1)))
     out = []
     for b0 in range(0, rows, block):
-        sl = slice(b0, b0 + block)
+        sl = slice(b0, min(b0 + block, rows))
         bx, by, bv = x[sl], y[sl], bval[sl]
         ni, no = nbr_idx[sl], nbr_ok[sl]
         n = bx.shape[0]

@@ -1,0 +1,144 @@
+"""Distributed exact readability metrics (paper S3.1) over a mesh
+(counterpart of :mod:`repro.distributed.pairwise`).
+
+Two strategies, as a Spark all-pairs join maps onto a set of ranks:
+
+* **replicated** -- the pair matrix's *rows* split over the ranks and the
+  column operand (the whole coordinate set, a few MB even at SNAP scale)
+  is on every rank: no communication until the final sum.  Each rank
+  launches the hand-written all-pairs kernel on its row range
+  (:func:`~repro_torch.kernels.occlusion_pairs.occlusion_pairs_rows`,
+  :func:`~repro_torch.kernels.segment_crossing.crossing_count_rows`),
+  which counts the pairs with ``i`` in its rows and global ``j > i``.
+* **ring** -- both sides split; ``n`` steps pass the column blocks around
+  the ring of ranks (the out-of-memory path for layouts too large to
+  replicate).  A step compares a rectangular block of local rows with a
+  received column block under global-index masks, which neither kernel
+  computes, so it runs as blocked PyTorch ops here, as the reference runs
+  it in jnp.
+
+Every mesh axis is flattened into one rank order; counting masks use
+global indices so the ``i < j`` rule holds across ranks.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.validate import BackendUnavailableError, ReadabilityError
+from repro_torch.distributed.collectives import psum, ring_shift
+from repro_torch.kernels.occlusion_pairs import TILE as VERTEX_TILE
+from repro_torch.kernels.occlusion_pairs import occlusion_pairs_rows
+from repro_torch.kernels.ops import _edge_arrays, _pad1
+from repro_torch.kernels.segment_crossing import TILE as EDGE_TILE
+from repro_torch.kernels.segment_crossing import crossing_count_rows
+
+# elements of the (rows, cols) pair blocks one ring step may hold
+_PAIR_BUDGET = 1 << 24
+
+
+def _run_sharded(tag, mesh, fn):
+    """Run a mesh dispatch behind the typed error taxonomy: a failure (a
+    lost rank, a collective or kernel error) becomes one
+    :class:`BackendUnavailableError` (``request_index=0``) with the
+    original chained; typed errors pass through."""
+    try:
+        return fn()
+    except ReadabilityError:
+        raise
+    except Exception as err:
+        raise BackendUnavailableError(
+            f"{tag} dispatch over {mesh.size} ranks failed: "
+            f"{type(err).__name__}: {err}", request_index=0) from err
+
+
+def _inputs(mesh, pos, edges, valid):
+    """``pos`` (and ``edges``) on the rank's device, and the validity mask
+    (all valid by default) of the vertices, or of the edges when
+    ``edges`` is given."""
+    from repro_torch.core.engine import device_inputs
+    pos, edges = device_inputs(pos, edges, mesh.device)
+    n = (pos if edges is None else edges).shape[0]
+    valid = (torch.ones(n, dtype=torch.bool) if valid is None
+             else torch.as_tensor(valid))
+    return pos, edges, valid.to(pos.device, torch.bool)
+
+
+def _my_rows(mesh, n_pad):
+    per = n_pad // mesh.size
+    return mesh.rank * per, (mesh.rank + 1) * per
+
+
+def sharded_occlusion_count(mesh, pos, radius, *, valid=None):
+    """Row-sharded exact N_c over every mesh axis (the replicated
+    strategy): each rank counts the pairs whose first vertex lies in its
+    row range, then the ranks sum.  Returns an int64 scalar tensor."""
+    def run():
+        p, _, ok = _inputs(mesh, pos, None, valid)
+        n_pad = -(-p.shape[0] // (mesh.size * VERTEX_TILE)) \
+            * (mesh.size * VERTEX_TILE)
+        x = _pad1(p[:, 0], n_pad, 0.0)
+        y = _pad1(p[:, 1], n_pad, 0.0)
+        ok = _pad1(ok, n_pad, False)
+        return psum(mesh, occlusion_pairs_rows(x, y, ok, radius,
+                                               *_my_rows(mesh, n_pad)))
+    return _run_sharded("row-sharded occlusion", mesh, run)
+
+
+def sharded_crossing_count(mesh, pos, edges, *, edge_valid=None,
+                           block: int = 256):
+    """Row-sharded exact E_c (the replicated strategy): each rank counts
+    the crossing pairs whose first edge lies in its row range, then the
+    ranks sum.  ``block`` is the plain route's row block.  Returns an
+    int64 scalar tensor."""
+    def run():
+        p, e, ok = _inputs(mesh, pos, edges, edge_valid)
+        x1, y1, x2, y2, _, v, u, ok = _edge_arrays(p, e, ok)
+        e_pad = -(-e.shape[0] // (mesh.size * EDGE_TILE)) \
+            * (mesh.size * EDGE_TILE)
+        args = [_pad1(a, e_pad, f) for a, f in
+                ((x1, 0.0), (y1, 0.0), (x2, 0.0), (y2, 0.0), (v, -1),
+                 (u, -2), (ok, False))]
+        return psum(mesh, crossing_count_rows(
+            *args, *_my_rows(mesh, e_pad), row_block=block))
+    return _run_sharded("row-sharded crossing", mesh, run)
+
+
+def ring_occlusion_count(mesh, pos, radius, *, valid=None):
+    """Ring-streamed exact N_c: both operands split over the ranks; in
+    ``n`` steps each rank compares its rows with the column block it
+    holds, then passes that block to the next rank.  Returns an int64
+    scalar tensor."""
+    def run():
+        p, _, ok = _inputs(mesh, pos, None, valid)
+        n_dev = mesh.size
+        n_pad = -(-p.shape[0] // n_dev) * n_dev
+        per = n_pad // n_dev
+        r0, r1 = _my_rows(mesh, n_pad)
+        x = _pad1(p[:, 0], n_pad, 0.0)[r0:r1]
+        y = _pad1(p[:, 1], n_pad, 0.0)[r0:r1]
+        oi = _pad1(ok, n_pad, False)[r0:r1]
+        dev = x.device
+        thresh = torch.tensor((2.0 * radius) ** 2, dtype=torch.float32,
+                              device=dev)
+        my_rows = r0 + torch.arange(per, device=dev)
+        block = max(1, min(per, _PAIR_BUDGET // max(per, 1)))
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        cx, cy, cok = x, y, oi
+        for k in range(n_dev):
+            # after k steps the resident block came from k ranks behind
+            src = (mesh.rank - k) % n_dev
+            col = src * per + torch.arange(per, device=dev)
+            for i0 in range(0, per, block):
+                sl = slice(i0, i0 + block)
+                dx = x[sl, None] - cx[None, :]
+                dy = y[sl, None] - cy[None, :]
+                d2 = dx * dx + dy * dy
+                mask = ((my_rows[sl, None] < col[None, :]) & oi[sl, None]
+                        & cok[None, :])
+                total = total + (mask & (d2 < thresh)).sum()
+            if k + 1 < n_dev:
+                cx, cy, cok = ring_shift(mesh, (cx, cy, cok))
+        return psum(mesh, total)
+    return _run_sharded("ring-streamed occlusion", mesh, run)
+

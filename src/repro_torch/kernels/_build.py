@@ -36,9 +36,9 @@ ENTRY_POINTS = {
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int] +
         [_P] * 3),
     "occlusion_pairs": ("occlusion_pairs_launch", [_P] * 3 + [
-        ctypes.c_int, ctypes.c_float] + [_P] * 2),
+        ctypes.c_int] * 3 + [ctypes.c_float] + [_P] * 2),
     "segment_crossing": ("segment_crossing_launch", [_P] * 7 + [
-        ctypes.c_int] + [_P] * 2),
+        ctypes.c_int] * 3 + [_P] * 2),
     "crossing_angle_sum": ("crossing_angle_sum_launch", [_P] * 8 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_float] + [_P] * 3),
 }

@@ -35,9 +35,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.geometry import line_crossing_angle
+from repro_torch.kernels.occlusion_pairs import row_tile_count
 from repro_torch.kernels.segment_crossing import (TILE, check_edge_arrays,
-                                                  crossing_mask, row_blocks,
-                                                  tile_partials)
+                                                  crossing_mask, row_blocks)
 
 
 def _ideal_and_recip(ideal):
@@ -83,7 +83,7 @@ def _launch(x1, y1, x2, y2, theta, v, u, valid, ideal):
     if n_tiles == 0:
         return (torch.zeros((), dtype=torch.int64, device=dev),
                 torch.zeros((), dtype=torch.float64, device=dev))
-    n_parts = tile_partials(n_tiles)
+    n_parts = row_tile_count(n_tiles, 0, n_tiles)
     cnt = torch.empty(n_parts, dtype=torch.int32, device=dev)
     dsum = torch.empty(n_parts, dtype=torch.float32, device=dev)
     ideal32, recip32 = _ideal_and_recip(ideal)

@@ -31,6 +31,6 @@ extern "C" int crossing_angle_sum_launch(const void* x1, const void* y1,
                                          void* stream) {
   return segment_pairs::launch_pair_sweep<true, SEGMENT_PAIRS_PER_THREAD,
                                           SEGMENT_PAIRS_UNROLL>(
-      x1, y1, x2, y2, th, v, u, ok, n, ideal, recip, cnt_out, dev_out,
-      stream);
+      x1, y1, x2, y2, th, v, u, ok, n, 0, n, ideal, recip, cnt_out,
+      dev_out, stream);
 }

@@ -4,7 +4,8 @@
 // (_occlusion_kernel / occlusion_count).  Counts the vertex pairs with
 // global i < j, both valid, and dx*dx + dy*dy < (2r)^2, as one int
 // partial per (TILE, TILE) tile on or above the diagonal of the pair
-// matrix; the wrapper sums the partials in int64.
+// matrix; the wrapper sums the partials in int64.  A row range restricts
+// i to [row0, row1) (j > i anywhere): the row-sharded driver's share.
 //
 // What bounds it: per-pair ALU work on the CUDA cores: two subtracts,
 // two multiplies, one add and the compare, plus the count (a select and
@@ -16,9 +17,11 @@
 // staging load per block is not on the critical path.
 //
 // Design:
-// * A 1-D grid of the n_t (n_t + 1) / 2 tiles with bi <= bj, numbered
-//   column by column (k = bj (bj + 1) / 2 + bi), so that neighbouring
-//   blocks share a j tile in L2.  No block exists only to write 0.
+// * A 1-D grid of the tiles with bi <= bj of a row range (the whole
+//   matrix, or one rank's rows for the row-sharded driver), numbered as
+//   row_tiles.cuh says: column by column (k = bj (bj + 1) / 2 + bi for the
+//   whole matrix), so that neighbouring blocks share a j tile in L2.  No
+//   block exists only to write 0.
 // * A block stages its j tile as float2 in shared memory and its i's in
 //   registers, eight per thread; one 8-byte broadcast load then serves
 //   eight pairs.
@@ -40,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "row_tiles.cuh"
 
 namespace {
 
@@ -63,18 +68,15 @@ __device__ __forceinline__ int lt_mask(float a, float b) {
 __global__ void __launch_bounds__(kThreads)
 occlusion_pairs_kernel(const float* __restrict__ x,
                        const float* __restrict__ y,
-                       const uint8_t* __restrict__ ok, float thresh,
-                       int32_t* __restrict__ partial) {
+                       const uint8_t* __restrict__ ok, int t0, int m,
+                       float thresh, int32_t* __restrict__ partial) {
   __shared__ float2 s_xy[kTile];
   __shared__ int32_t w_cnt[kThreads / 32];
 
-  // tile k -> (bi, bj), bi <= bj, from k = bj (bj + 1) / 2 + bi
+  // tile k of the row range -> (bi, bj), bi <= bj
   const long long k = blockIdx.x;
-  int bj = static_cast<int>((sqrt(8.0 * static_cast<double>(k) + 1.0) - 1.0) *
-                            0.5);
-  while (static_cast<long long>(bj) * (bj + 1) / 2 > k) --bj;
-  while (static_cast<long long>(bj + 1) * (bj + 2) / 2 <= k) ++bj;
-  const int bi = static_cast<int>(k - static_cast<long long>(bj) * (bj + 1) / 2);
+  int bi, bj;
+  row_tiles::tile(k, t0, m, bi, bj);
   const int tid = threadIdx.x;
   const float nan = __int_as_float(0x7fc00000);
 
@@ -151,18 +153,25 @@ occlusion_pairs_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// Plain C entry.  n is a multiple of 512 (the wrapper pads); partial holds
-// n_t (n_t + 1) / 2 int32, n_t = n / 512, one per tile with bi <= bj.
-// Launches on `stream` and returns cudaGetLastError().
+// Plain C entry.  n is a multiple of 512 (the wrapper pads); the pairs
+// counted are those with i in [row0, row1) and j > i, both ends multiples
+// of 512 ([0, n) for the whole matrix).  partial holds one int32 per tile
+// of the row range, row_tiles::count(n_t, t0, m) of them (n_t (n_t + 1) / 2
+// for the whole matrix), n_t = n / 512.  Launches on `stream` and returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a bad row range.
 extern "C" int occlusion_pairs_launch(const void* x, const void* y,
-                                      const void* ok, int n, float thresh,
-                                      void* partial, void* stream) {
-  const long long n_tiles = n / kTile;
-  const long long blocks = n_tiles * (n_tiles + 1) / 2;
+                                      const void* ok, int n, int row0,
+                                      int row1, float thresh, void* partial,
+                                      void* stream) {
+  int t0, m;
+  if (n % kTile || !row_tiles::split(n, row0, row1, kTile, t0, m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = row_tiles::count(n / kTile, t0, m);
+  if (blocks == 0) return static_cast<int>(cudaSuccess);
   occlusion_pairs_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<const uint8_t*>(ok), thresh,
+      static_cast<const uint8_t*>(ok), t0, m, thresh,
       static_cast<int32_t*>(partial));
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,16 +17,21 @@
 #define SEGMENT_PAIRS_UNROLL 4
 #endif
 
-// Plain C entry.  n is a multiple of 256 (the wrapper pads); partial is
-// (n_t (n_t + 1) / 2,) int32, n_t = n / 256, one per tile with bi <= bj.
-// Launches on `stream` and returns cudaGetLastError().
+// Plain C entry.  n is a multiple of 256 (the wrapper pads); the pairs
+// counted are those with i in [row0, row1) and j > i, both ends multiples
+// of 256 ([0, n) for the whole matrix: the row-sharded driver gives each
+// rank its rows).  partial holds one int32 per tile of the row range,
+// row_tiles::count(n_t, t0, m) of them (n_t (n_t + 1) / 2 for the whole
+// matrix), n_t = n / 256.  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int segment_crossing_launch(const void* x1, const void* y1,
                                        const void* x2, const void* y2,
                                        const void* v, const void* u,
-                                       const void* ok, int n, void* partial,
+                                       const void* ok, int n, int row0,
+                                       int row1, void* partial,
                                        void* stream) {
   return segment_pairs::launch_pair_sweep<false, SEGMENT_PAIRS_PER_THREAD,
                                           SEGMENT_PAIRS_UNROLL>(
-      x1, y1, x2, y2, nullptr, v, u, ok, n, 1.f, 1.f, partial, nullptr,
-      stream);
+      x1, y1, x2, y2, nullptr, v, u, ok, n, row0, row1, 1.f, 1.f, partial,
+      nullptr, stream);
 }

@@ -49,9 +49,11 @@
 // dimension is 2 and the counts are exact), so no tensor-core work.
 //
 // Design:
-// * A 1-D grid of the n_t (n_t + 1) / 2 tiles with bi <= bj, numbered
-//   column by column (k = bj (bj + 1) / 2 + bi, as occlusion_pairs.cu), one
-//   (count, deviation) partial per tile.  No block exists only to write
+// * A 1-D grid of the tiles with bi <= bj of a row range (the whole
+//   matrix, or one rank's rows for the row-sharded crossing count),
+//   numbered as row_tiles.cuh says (column by column, k = bj (bj + 1) / 2 +
+//   bi for the whole matrix, as occlusion_pairs.cu), one (count,
+//   deviation) partial per tile.  No block exists only to write
 //   0; a block whose i tile or j tile holds no valid edge writes 0 at
 //   once (__syncthreads_or over the flags it loaded).
 // * The j tile is staged in shared memory as two 16-byte records per edge
@@ -79,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "row_tiles.cuh"
 
 
 namespace segment_pairs {
@@ -232,8 +236,8 @@ pair_sweep_kernel(const float* __restrict__ x1, const float* __restrict__ y1,
                   const float* __restrict__ x2, const float* __restrict__ y2,
                   const float* __restrict__ th, const int32_t* __restrict__ v,
                   const int32_t* __restrict__ u,
-                  const uint8_t* __restrict__ ok, float ideal, float recip,
-                  int32_t* __restrict__ cnt_out,
+                  const uint8_t* __restrict__ ok, int t0, int m,
+                  float ideal, float recip, int32_t* __restrict__ cnt_out,
                   float* __restrict__ dev_out) {
   constexpr int kThreads = kTile / kPer;
   static_assert(kTile % kPer == 0 && kThreads % 32 == 0,
@@ -244,14 +248,10 @@ pair_sweep_kernel(const float* __restrict__ x1, const float* __restrict__ y1,
   __shared__ int32_t w_cnt[kThreads / 32];
   __shared__ float w_dev[kThreads / 32];
 
-  // tile k -> (bi, bj), bi <= bj, from k = bj (bj + 1) / 2 + bi
+  // tile k of the row range -> (bi, bj), bi <= bj
   const long long k = blockIdx.x;
-  int bj = static_cast<int>((sqrt(8.0 * static_cast<double>(k) + 1.0) - 1.0) *
-                            0.5);
-  while (static_cast<long long>(bj) * (bj + 1) / 2 > k) --bj;
-  while (static_cast<long long>(bj + 1) * (bj + 2) / 2 <= k) ++bj;
-  const int bi =
-      static_cast<int>(k - static_cast<long long>(bj) * (bj + 1) / 2);
+  int bi, bj;
+  row_tiles::tile(k, t0, m, bi, bj);
   const int tid = threadIdx.x;
 
   bool any_j = false;
@@ -333,17 +333,22 @@ pair_sweep_kernel(const float* __restrict__ x1, const float* __restrict__ y1,
   }
 }
 
-// n is a multiple of kTile; cnt_out (and dev_out with kAngle) hold one
-// partial per tile with bi <= bj: n_t (n_t + 1) / 2 of them, n_t = n /
-// kTile.
+// n is a multiple of kTile; the pairs swept are those with i in [row0,
+// row1) and j > i, both ends multiples of kTile ([0, n) for the whole
+// matrix); cnt_out (and dev_out with kAngle) hold one partial per tile of
+// the row range, row_tiles::count(n_t, t0, m) of them (n_t (n_t + 1) / 2
+// for the whole matrix), n_t = n / kTile.  Returns cudaErrorInvalidValue
+// for a bad row range.
 template <bool kAngle, int kPer, int kUnroll>
 int launch_pair_sweep(const void* x1, const void* y1, const void* x2,
                       const void* y2, const void* th, const void* v,
-                      const void* u, const void* ok, int n, float ideal,
-                      float recip, void* cnt_out, void* dev_out,
-                      void* stream) {
-  const long long n_tiles = n / kTile;
-  const long long blocks = n_tiles * (n_tiles + 1) / 2;
+                      const void* u, const void* ok, int n, int row0,
+                      int row1, float ideal, float recip, void* cnt_out,
+                      void* dev_out, void* stream) {
+  int t0, m;
+  if (n % kTile || !row_tiles::split(n, row0, row1, kTile, t0, m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = row_tiles::count(n / kTile, t0, m);
   if (blocks == 0) return static_cast<int>(cudaSuccess);
   pair_sweep_kernel<kAngle, kPer, kUnroll>
       <<<static_cast<unsigned>(blocks), kTile / kPer, 0,
@@ -352,7 +357,7 @@ int launch_pair_sweep(const void* x1, const void* y1, const void* x2,
           static_cast<const float*>(x2), static_cast<const float*>(y2),
           static_cast<const float*>(th), static_cast<const int32_t*>(v),
           static_cast<const int32_t*>(u), static_cast<const uint8_t*>(ok),
-          ideal, recip, static_cast<int32_t*>(cnt_out),
+          t0, m, ideal, recip, static_cast<int32_t*>(cnt_out),
           static_cast<float*>(dev_out));
   return static_cast<int>(cudaGetLastError());
 }

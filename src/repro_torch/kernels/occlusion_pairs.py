@@ -11,6 +11,12 @@ partial per ``(TILE, TILE)`` tile of the pair matrix, summed afterwards.
   hand-written kernel ``csrc/occlusion_pairs.cu`` (counted in
   ``occlusion_pairs.LAUNCHES``); CPU inputs run the plain version; any
   other device raises.
+* :func:`occlusion_pairs_rows` -- the same count restricted to the pairs
+  whose ``i`` lies in a row range ``[row0, row1)`` (``j > i`` anywhere):
+  one rank's share in the row-sharded driver
+  (:func:`repro_torch.distributed.pairwise.sharded_occlusion_count`).
+  The same kernel, launched on the range's tiles only (counted in
+  ``occlusion_pairs_rows.LAUNCHES``).
 
 What bounds the kernel on an H100: per-pair ALU instructions on the CUDA
 cores (two subtracts, two multiplies, one add, the compare, the
@@ -39,16 +45,18 @@ def _threshold(radius, like):
                         device=like.device)
 
 
-def occlusion_pairs_plain(x, y, valid, radius):
+def occlusion_pairs_plain(x, y, valid, radius, rows=None):
     """Count pairs ``i < j`` with both valid and ``d2 < (2r)^2`` by blocked
-    all-pairs PyTorch.  Returns an int64 scalar tensor."""
+    all-pairs PyTorch, ``i`` in the row range ``rows = (row0, row1)``
+    (default: every row).  Returns an int64 scalar tensor."""
     n = x.shape[0]
+    row0, row1 = (0, n) if rows is None else rows
     thresh = _threshold(radius, x)
     idx = torch.arange(n, device=x.device)
     block = max(1, min(n, _PAIR_BUDGET // max(n, 1)))
     total = torch.zeros((), dtype=torch.int64, device=x.device)
-    for i0 in range(0, n, block):
-        sl = slice(i0, i0 + block)
+    for i0 in range(row0, row1, block):
+        sl = slice(i0, min(i0 + block, row1))
         dx = x[sl, None] - x[None, :]
         dy = y[sl, None] - y[None, :]
         d2 = dx * dx + dy * dy
@@ -58,7 +66,7 @@ def occlusion_pairs_plain(x, y, valid, radius):
     return total
 
 
-def _launch(x, y, valid, radius):
+def _launch(x, y, valid, radius, row0, row1):
     from repro_torch.kernels._build import entry
 
     n = x.shape[0]
@@ -77,25 +85,48 @@ def _launch(x, y, valid, radius):
     if n % TILE:
         raise ValueError(f"n={n} must be a multiple of {TILE} "
                          "(ops.occlusion_count_op pads)")
+    if not (0 <= row0 <= row1 <= n and row0 % TILE == 0
+            and row1 % TILE == 0):
+        raise ValueError(f"row range [{row0}, {row1}) must lie in [0, {n}) "
+                         f"with both ends multiples of {TILE}")
     n_tiles = n // TILE
-    if n_tiles == 0:
+    if row0 == row1:
         return torch.zeros((), dtype=torch.int64, device=dev)
     if n_tiles > 65535:
         raise ValueError(f"n={n} exceeds the kernel's tile grid")
-    # one partial per tile on or above the diagonal
-    partial = torch.empty(n_tiles * (n_tiles + 1) // 2, dtype=torch.int32,
-                          device=dev)
+    partial = torch.empty(row_tile_count(n_tiles, row0 // TILE,
+                                         (row1 - row0) // TILE),
+                          dtype=torch.int32, device=dev)
     fn = entry("occlusion_pairs")
     thresh = float(_threshold(radius, torch.empty(0)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), valid.data_ptr(), n, thresh,
-                 partial.data_ptr(), stream)
+        err = fn(x.data_ptr(), y.data_ptr(), valid.data_ptr(), n, row0, row1,
+                 thresh, partial.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"occlusion_pairs kernel launch failed: "
                            f"cudaError {err}")
-    occlusion_pairs.LAUNCHES += 1
     return partial.sum(dtype=torch.int64)
+
+
+def row_tile_count(n_tiles, t0, m):
+    """Tiles (bi, bj), bi <= bj, of the ``m`` row tiles from ``t0`` of an
+    ``n_tiles``-square tile grid: the partials a launch of this kernel or
+    of the crossing kernels writes (``csrc/row_tiles.cuh``);
+    ``n_tiles (n_tiles + 1) / 2`` for the whole grid."""
+    return m * (m + 1) // 2 + (n_tiles - t0 - m) * m
+
+
+def _route(x, y, valid, radius, rows, counter):
+    if x.device.type == "cpu":
+        return occlusion_pairs_plain(x, y, valid, radius, rows=rows)
+    if x.device.type != "cuda":
+        raise ValueError(f"occlusion_pairs runs on cuda or cpu, "
+                         f"got {x.device}")
+    out = _launch(x, y, valid, radius, *rows)
+    if rows[0] < rows[1]:
+        counter.LAUNCHES += 1
+    return out
 
 
 def occlusion_pairs(x, y, valid, radius):
@@ -103,12 +134,16 @@ def occlusion_pairs(x, y, valid, radius):
     validity mask.  CUDA inputs (float32 / bool, contiguous, ``n`` a
     multiple of :data:`TILE`) launch the kernel; CPU inputs run
     :func:`occlusion_pairs_plain`.  Returns an int64 scalar tensor."""
-    if x.device.type == "cpu":
-        return occlusion_pairs_plain(x, y, valid, radius)
-    if x.device.type != "cuda":
-        raise ValueError(f"occlusion_pairs runs on cuda or cpu, "
-                         f"got {x.device}")
-    return _launch(x, y, valid, radius)
+    return _route(x, y, valid, radius, (0, x.shape[0]), occlusion_pairs)
+
+
+def occlusion_pairs_rows(x, y, valid, radius, row0, row1):
+    """The occluded pairs ``i < j`` of :func:`occlusion_pairs` with ``i`` in
+    ``[row0, row1)``; on CUDA both ends are multiples of :data:`TILE`.
+    Summed over a partition of the rows, this is the whole count."""
+    return _route(x, y, valid, radius, (int(row0), int(row1)),
+                  occlusion_pairs_rows)
 
 
 occlusion_pairs.LAUNCHES = 0
+occlusion_pairs_rows.LAUNCHES = 0

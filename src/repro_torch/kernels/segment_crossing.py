@@ -12,6 +12,12 @@ the diagonal of the pair matrix, summed afterwards.
   hand-written kernel ``csrc/segment_crossing.cu`` (counted in
   ``crossing_count.LAUNCHES``); CPU inputs run the plain version; any
   other device raises.
+* :func:`crossing_count_rows` -- the same count restricted to the pairs
+  whose ``i`` lies in a row range ``[row0, row1)`` (``j > i`` anywhere):
+  one rank's share in the row-sharded driver
+  (:func:`repro_torch.distributed.pairwise.sharded_crossing_count`).  The
+  same kernel on the range's tiles only (counted in
+  ``crossing_count_rows.LAUNCHES``).
 
 What bounds the kernel on an H100: per-pair ALU work on the CUDA cores
 (about 31 issued instructions: the cross products rounded op by op, the
@@ -30,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.geometry import segments_cross_bool, share_endpoint
+from repro_torch.kernels.occlusion_pairs import row_tile_count
 from repro_torch.kernels.strip_reversal import _check
 
 TILE = 256
@@ -37,12 +44,14 @@ TILE = 256
 _PAIR_BUDGET = 1 << 25
 
 
-def row_blocks(n, row_block):
+def row_blocks(n, row_block, rows=None):
     """``(i0, i1)`` row ranges of a blocked upper-triangle sweep over
-    ``n`` edges, each at most ``row_block`` rows and within the pair
+    ``n`` edges, covering the row range ``rows = (row0, row1)`` (default:
+    every row), each at most ``row_block`` rows and within the pair
     budget."""
+    row0, row1 = (0, n) if rows is None else rows
     block = max(1, min(row_block, _PAIR_BUDGET // max(n, 1)))
-    return [(i0, min(i0 + block, n)) for i0 in range(0, n, block)]
+    return [(i0, min(i0 + block, row1)) for i0 in range(row0, row1, block)]
 
 
 def crossing_mask(x1, y1, x2, y2, v, u, valid, i0, i1):
@@ -60,21 +69,16 @@ def crossing_mask(x1, y1, x2, y2, v, u, valid, i0, i1):
 
 
 def crossing_count_plain(x1, y1, x2, y2, v, u, valid, *,
-                         row_block: int = 512):
+                         row_block: int = 512, rows=None):
     """Count crossing pairs ``i < j`` (both valid, no shared endpoint) by
-    blocked all-pairs PyTorch over the upper triangle.  Returns an int64
+    blocked all-pairs PyTorch over the upper triangle, ``i`` in the row
+    range ``rows = (row0, row1)`` (default: every row).  Returns an int64
     scalar tensor."""
     total = torch.zeros((), dtype=torch.int64, device=x1.device)
-    for i0, i1 in row_blocks(x1.shape[0], row_block):
+    for i0, i1 in row_blocks(x1.shape[0], row_block, rows):
         total = total + crossing_mask(x1, y1, x2, y2, v, u, valid,
                                       i0, i1).sum()
     return total
-
-
-def tile_partials(n_tiles):
-    """Number of per-tile partials the crossing kernels write: one per
-    tile ``(bi, bj)`` with ``bi <= bj``."""
-    return n_tiles * (n_tiles + 1) // 2
 
 
 def check_edge_arrays(n, tile, named):
@@ -91,7 +95,7 @@ def check_edge_arrays(n, tile, named):
         raise ValueError(f"n={n} exceeds the kernel's tile grid")
 
 
-def _launch(x1, y1, x2, y2, v, u, valid):
+def _launch(x1, y1, x2, y2, v, u, valid, row0, row1):
     from repro_torch.kernels._build import entry
 
     n = x1.shape[0]
@@ -100,22 +104,38 @@ def _launch(x1, y1, x2, y2, v, u, valid):
     check_edge_arrays(n, TILE, [
         ("x1", x1, f32), ("y1", y1, f32), ("x2", x2, f32), ("y2", y2, f32),
         ("v", v, i32), ("u", u, i32), ("valid", valid, torch.bool)])
-    n_tiles = n // TILE
-    if n_tiles == 0:
+    if not (0 <= row0 <= row1 <= n and row0 % TILE == 0
+            and row1 % TILE == 0):
+        raise ValueError(f"row range [{row0}, {row1}) must lie in [0, {n}) "
+                         f"with both ends multiples of {TILE}")
+    if row0 == row1:
         return torch.zeros((), dtype=torch.int64, device=dev)
-    partial = torch.empty(tile_partials(n_tiles), dtype=torch.int32,
-                          device=dev)
+    partial = torch.empty(row_tile_count(n // TILE, row0 // TILE,
+                                         (row1 - row0) // TILE),
+                          dtype=torch.int32, device=dev)
     fn = entry("segment_crossing")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x1.data_ptr(), y1.data_ptr(), x2.data_ptr(), y2.data_ptr(),
-                 v.data_ptr(), u.data_ptr(), valid.data_ptr(), n,
+                 v.data_ptr(), u.data_ptr(), valid.data_ptr(), n, row0, row1,
                  partial.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"segment_crossing kernel launch failed: "
                            f"cudaError {err}")
-    crossing_count.LAUNCHES += 1
     return partial.sum(dtype=torch.int64)
+
+
+def _route(args, row_block, rows, counter):
+    x1 = args[0]
+    if x1.device.type == "cpu":
+        return crossing_count_plain(*args, row_block=row_block, rows=rows)
+    if x1.device.type != "cuda":
+        raise ValueError(f"crossing_count runs on cuda or cpu, "
+                         f"got {x1.device}")
+    out = _launch(*args, *rows)
+    if rows[0] < rows[1]:
+        counter.LAUNCHES += 1
+    return out
 
 
 def crossing_count(x1, y1, x2, y2, v, u, valid, *, row_block: int = 512):
@@ -124,13 +144,18 @@ def crossing_count(x1, y1, x2, y2, v, u, valid, *, row_block: int = 512):
     CUDA inputs (contiguous, ``n`` a multiple of :data:`TILE`) launch the
     kernel; CPU inputs run :func:`crossing_count_plain` in blocks of
     ``row_block`` rows.  Returns an int64 scalar tensor."""
-    if x1.device.type == "cpu":
-        return crossing_count_plain(x1, y1, x2, y2, v, u, valid,
-                                    row_block=row_block)
-    if x1.device.type != "cuda":
-        raise ValueError(f"crossing_count runs on cuda or cpu, "
-                         f"got {x1.device}")
-    return _launch(x1, y1, x2, y2, v, u, valid)
+    return _route((x1, y1, x2, y2, v, u, valid), row_block,
+                  (0, x1.shape[0]), crossing_count)
+
+
+def crossing_count_rows(x1, y1, x2, y2, v, u, valid, row0, row1, *,
+                        row_block: int = 512):
+    """The crossing pairs ``i < j`` of :func:`crossing_count` with ``i`` in
+    ``[row0, row1)``; on CUDA both ends are multiples of :data:`TILE`.
+    Summed over a partition of the rows, this is the whole count."""
+    return _route((x1, y1, x2, y2, v, u, valid), row_block,
+                  (int(row0), int(row1)), crossing_count_rows)
 
 
 crossing_count.LAUNCHES = 0
+crossing_count_rows.LAUNCHES = 0

@@ -14,10 +14,12 @@ which the serving session consults at fixed hook points:
   ``slow_dispatches`` sleep ``slow_seconds`` first (a straggler), and
   ``hang_dispatches`` block until the watchdog abandons the dispatch (or
   ``hang_seconds`` elapses), then raise :class:`FaultInjected`.
-* ``check_sharded`` / ``check_probe`` -- before a mesh-sharded dispatch
-  and before a breaker canary probe; selected ordinals raise
-  :class:`~repro_torch.core.validate.BackendUnavailableError`.  The port
-  has no mesh rung yet, so its sessions never reach these two.
+* ``check_sharded`` / ``check_probe`` -- before a mesh rung's dispatch
+  (graph-sharded or batch-sharded) and before a breaker canary probe;
+  selected ordinals raise
+  :class:`~repro_torch.core.validate.BackendUnavailableError` (a
+  simulated mesh loss, a rejected probe).  On a mesh of several ranks
+  arm the same plan on every rank: the ranks then take the same rung.
 * ``storm_overflow`` -- on every dispatch result while armed; forces
   ``overflow`` positive so the replan loop can never converge.
 

@@ -53,8 +53,8 @@ class ReadabilityServer:
     ``ReadabilityServer(config)`` is the canonical constructor; the
     keyword knobs (``cache_size``, ``vertex_floor``, ``edge_floor``,
     ``max_coalesce``, and the overload knobs ``max_queue``,
-    ``max_queue_cost``, ``default_deadline``, ``dispatch_timeout``, see
-    :class:`EvalSession`) are serving policy.
+    ``max_queue_cost``, ``default_deadline``, ``dispatch_timeout``,
+    ``probe_interval``, see :class:`EvalSession`) are serving policy.
     ``device=None`` runs on CUDA and raises without one.  Requests are
     ``(pos, edges)`` pairs.
     """
@@ -64,7 +64,8 @@ class ReadabilityServer:
                  vertex_floor: int = 128, edge_floor: int = 128,
                  max_coalesce: int = 32, max_queue: int = None,
                  max_queue_cost: int = None, default_deadline: float = None,
-                 dispatch_timeout: float = None, **legacy_kwargs):
+                 dispatch_timeout: float = None, probe_interval: int = 8,
+                 **legacy_kwargs):
         if isinstance(config, str):   # old positional method argument
             method, config = config, None
         self._exact = False
@@ -107,7 +108,8 @@ class ReadabilityServer:
                                     max_queue=max_queue,
                                     max_queue_cost=max_queue_cost,
                                     default_deadline=default_deadline,
-                                    dispatch_timeout=dispatch_timeout)
+                                    dispatch_timeout=dispatch_timeout,
+                                    probe_interval=probe_interval)
                         if self.method == "session" else None)
         self._evaluator = None
         self._stats = {"requests": 0, "evals": 0}

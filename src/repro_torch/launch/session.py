@@ -53,11 +53,22 @@ then re-scores small vertex moves from the dirty cells and strips alone
 (``updates`` / ``delta_hits`` / ``delta_fallbacks``), and every case the
 delta cannot prove sound falls back to a full re-evaluation.
 
-Not ported yet: the mesh rungs of the degradation ladder (``mesh=``,
-``backend="graph_sharded"``, the breaker's ``probe_interval``; ROADMAP
-queue 1 item 4).  They raise ``NotImplementedError``; their counters are
-present and stay 0, and the breaker stays closed.  PyTorch runs eagerly,
-so ``traces`` stays 0 too.
+**The mesh rungs of the degradation ladder**: with a ``mesh``
+(:class:`~repro_torch.distributed.compat.Mesh`, every rank of it running
+the same session on the same requests), ``backend="graph_sharded"``
+partitions each layout over the ranks
+(:func:`~repro_torch.distributed.graph_sharded.evaluate_graph_sharded`,
+``graph_sharded_dispatches``) and a coalesced batch on a mesh of more
+than one rank splits its batch axis over them
+(:func:`~repro_torch.distributed.batched.evaluate_layouts_sharded`,
+``sharded_dispatches``).  A mesh dispatch that fails degrades to the
+single-host fused rung within the same dispatch (integer metrics equal)
+and opens the :class:`~repro_torch.launch.admission.CircuitBreaker`;
+after ``probe_interval`` fused successes the next mesh-eligible dispatch
+is a canary probe, whose success closes it again (``probes`` /
+``auto_restores``).  Every rank reaches the same rung: results are
+summed or gathered over the ranks, and a ``FaultPlan`` is armed alike on
+each.  PyTorch runs eagerly, so ``traces`` stays 0.
 """
 
 from __future__ import annotations
@@ -123,9 +134,37 @@ class PlanCache:
                 self.evictions += 1
 
 
+class _BreakerBuffer:
+    """Write-buffering view of the session's breaker for watchdog workers:
+    reads delegate to the live breaker (the worker must see the real
+    circuit state to pick its rung), outcome records are kept as events
+    that the session replays only if it has not abandoned the dispatch."""
+
+    def __init__(self, breaker):
+        self._breaker = breaker
+        self.events = []
+
+    def allow(self):
+        return self._breaker.allow()
+
+    @property
+    def probing(self):
+        return self._breaker.probing
+
+    def record_success(self):
+        self.events.append("record_success")
+
+    def record_failure(self):
+        self.events.append("record_failure")
+
+    def record_fallback_success(self):
+        self.events.append("record_fallback_success")
+
+
 class EvalSession:
-    """Plan-caching, shape-bucketing, request-coalescing evaluator on one
-    device, with the fault-tolerance layer (see the module docstring).
+    """Plan-caching, shape-bucketing, request-coalescing evaluator, with
+    the fault-tolerance layer and the mesh rungs (see the module
+    docstring).
 
     ``EvalSession(config)`` is the canonical constructor.  ``device=None``
     runs on CUDA and raises when there is none (pass ``device="cpu"`` for
@@ -142,10 +181,14 @@ class EvalSession:
       even when requests carry no deadline;
     * ``update_dirty_threshold`` -- an :meth:`update` falls back to a full
       re-evaluation when it dirties more than this fraction of the
-      vertices, the grid cells or either orientation's strips.
-
-    ``mesh=`` and ``probe_interval=`` (mesh serving) raise
-    ``NotImplementedError`` when given.
+      vertices, the grid cells or either orientation's strips;
+    * ``mesh`` -- the :class:`~repro_torch.distributed.compat.Mesh` of the
+      mesh rungs (``backend="graph_sharded"`` brings one up by
+      :func:`~repro_torch.launch.elastic.serving_mesh` when none is
+      given); the session then runs on ``mesh.device`` unless ``device``
+      says otherwise;
+    * ``probe_interval`` -- fused successes the open breaker counts before
+      it re-probes the mesh.
 
     The old per-knob evaluation kwargs (``radius=``, ``n_strips=``, ...)
     are a deprecation shim mapped onto an :class:`EvalConfig`.
@@ -157,7 +200,7 @@ class EvalSession:
                  max_replan_retries: int = 2, replan_growth: float = 1.5,
                  growth_ceiling: float = 4.0, max_queue: int = None,
                  max_queue_cost: int = None, default_deadline: float = None,
-                 dispatch_timeout: float = None, probe_interval: int = None,
+                 dispatch_timeout: float = None, probe_interval: int = 8,
                  update_dirty_threshold: float = 0.25, mesh=None,
                  **legacy_kwargs):
         if legacy_kwargs:
@@ -177,15 +220,17 @@ class EvalSession:
                 "'kernels' or 'graph_sharded', got "
                 f"{self.config.backend!r} (use repro_torch.api.Evaluator "
                 "for the other backends)")
-        if (self.config.backend == "graph_sharded" or mesh is not None
-                or probe_interval is not None):
-            raise NotImplementedError(
-                "mesh serving (mesh=, backend='graph_sharded', the "
-                "breaker's probe_interval) is not ported to repro_torch "
-                "yet (ROADMAP module item 10)")
         if self.config.precision != "float32":
             raise NotImplementedError(
                 f"precision={self.config.precision!r} is not ported yet")
+        if self.config.backend == "graph_sharded" and mesh is None:
+            # graph_sharded needs a mesh (it is what the backend means):
+            # the serving policy brings one up, capped by config.shards
+            from repro_torch.launch.elastic import serving_mesh
+            mesh = serving_mesh("graph", shards=self.config.shards,
+                                device=device)
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = engine.resolve_device(device)
         self.vertex_floor = int(vertex_floor)
         self.edge_floor = int(edge_floor)
@@ -208,9 +253,12 @@ class EvalSession:
         # device-resident partials, each guarded by its own lock
         self._layouts = {}
         self._layouts_lock = threading.Lock()
-        # with no mesh rung nothing records to the breaker: it stays
-        # closed and feeds the stats/health() keys
-        self.breaker = CircuitBreaker()
+        # mesh is serving policy, not evaluation semantics: routing over
+        # it is transparent to callers (integer metrics equal); a failed
+        # mesh dispatch opens the breaker, and the fused rung serves until
+        # a canary probe (or restore_mesh()) closes it again
+        self.mesh = mesh
+        self.breaker = CircuitBreaker(probe_interval)
         self.plans = PlanCache(cache_size)
         # serializes watchdog abandonment against worker publication: a
         # dispatch the watchdog gave up on never merges into shared state
@@ -239,22 +287,34 @@ class EvalSession:
         return s
 
     def health(self) -> dict:
-        """Operational snapshot: the rung the session serves from, the
-        breaker state and the counters."""
+        """Operational snapshot: the rung of the degradation ladder the
+        session serves from, the breaker state and the counters."""
         state = self.breaker.state
+        mesh_live = self.mesh is not None and state != admission.OPEN
+        degraded = self.mesh is not None and state != admission.CLOSED
+        if self.config.backend == "graph_sharded" and mesh_live:
+            mode = "graph_sharded"
+        elif self.mesh is not None and self.mesh.size > 1 and mesh_live:
+            mode = "sharded"
+        else:
+            mode = "single-host"
         return {
-            "status": "ok",
+            "status": "degraded" if degraded else "ok",
             "backend": self.config.backend,
             "validation": self.config.validation,
             "breaker_state": state,
-            "dispatch_mode": "single-host",
-            "mesh": None,
+            "dispatch_mode": mode,
+            "mesh": (None if self.mesh is None else
+                     {"devices": int(self.mesh.size),
+                      "active": state == admission.CLOSED}),
             "plans_cached": len(self.plans),
             "counters": self.stats,
         }
 
     def restore_mesh(self) -> None:
-        """Manual override: force the breaker closed."""
+        """Manual override after an operator's repair: force the breaker
+        closed, so the next dispatch climbs straight back to the mesh (no
+        canary, no ``auto_restores`` credit)."""
         self.breaker.force_close()
 
     # -- request preparation ------------------------------------------------
@@ -295,18 +355,53 @@ class EvalSession:
 
     # -- dispatch -----------------------------------------------------------
 
-    def _dispatch(self, plan, chunk, stats=None):
-        """One engine call for a same-key chunk -> list of host scores.
+    def _dispatch(self, plan, chunk, stats=None, breaker=None):
+        """One engine dispatch for a same-key chunk -> list of host scores.
 
-        ``stats`` defaults to the session's own counters; the watchdog
-        passes a private buffer so that an abandoned dispatch's writes can
-        be dropped (see :meth:`_guarded_dispatch`)."""
+        A mesh dispatch that fails (a lost rank, a collective error, an
+        injected mesh loss) degrades to the fused single-host program
+        within this dispatch and opens the breaker; integer metrics are
+        equal on both rungs, so callers see it only in
+        ``degraded_dispatches``.  While the breaker is open each fused
+        success feeds its half-open countdown, and a half-open breaker
+        makes the next mesh-eligible dispatch the canary probe.
+
+        ``stats`` / ``breaker`` default to the session's own; the watchdog
+        passes buffering stand-ins so that an abandoned dispatch's writes
+        can be dropped (see :meth:`_guarded_dispatch`)."""
         if stats is None:
             stats = self._stats
+        if breaker is None:
+            breaker = self.breaker
         faults.check_dispatch()
         stats["dispatches"] += 1
         n_v, n_e = chunk[0]["n_v"], chunk[0]["n_e"]
         use_kernels = self.config.use_kernels
+        if (self.config.backend == "graph_sharded" and self.mesh is not None
+                and breaker.allow()):
+            # top rung: each layout spatially partitioned over the mesh
+            # (one driver call per member: the graph axis, not the batch
+            # axis, is what is sharded); any failure drops to the fused
+            # rungs below
+            from repro_torch.distributed.graph_sharded import \
+                evaluate_graph_sharded
+            try:
+                if breaker.probing:
+                    faults.check_probe()
+                faults.check_sharded()
+                results = [evaluate_graph_sharded(
+                    self.mesh, plan, c["pos_p"], c["edges_p"],
+                    n_valid_vertices=n_v, n_valid_edges=n_e)
+                    for c in chunk]
+                reports = [scores_from_result(r, n_v, n_e) for r in results]
+                breaker.record_success()
+                stats["graph_sharded_dispatches"] += len(chunk)
+                if len(chunk) > 1:
+                    stats["coalesced"] += len(chunk)
+                return faults.storm_overflow(reports)
+            except Exception:
+                breaker.record_failure()
+                stats["degraded_dispatches"] += 1
         if len(chunk) == 1:
             res = engine.evaluate_planned(
                 plan, chunk[0]["pos_p"], chunk[0]["edges_p"], n_v, n_e,
@@ -315,10 +410,39 @@ class EvalSession:
         else:
             stats["coalesced"] += len(chunk)
             batch = np.stack([c["pos_p"] for c in chunk])
-            res = engine.evaluate_layouts(
-                plan, batch, chunk[0]["edges_p"], n_v, n_e,
-                use_kernels=use_kernels, device=self.device)
-            reports = scores_from_batch(res, n_v, n_e)
+            reports = None
+            if (self.mesh is not None and self.mesh.size > 1
+                    and not use_kernels and breaker.allow()):
+                # scale-out: the coalesced batch axis over the mesh (the
+                # kernels route evaluates members one by one and stays
+                # single-host)
+                from repro_torch.distributed.batched import \
+                    evaluate_layouts_sharded
+                try:
+                    if breaker.probing:
+                        faults.check_probe()
+                    faults.check_sharded()
+                    res = evaluate_layouts_sharded(
+                        self.mesh, plan, batch, chunk[0]["edges_p"],
+                        n_valid_vertices=n_v, n_valid_edges=n_e)
+                    reports = scores_from_batch(res, n_v, n_e)
+                    breaker.record_success()
+                    stats["sharded_dispatches"] += 1
+                except Exception:
+                    # one rung down: fused single-host, the same batched
+                    # body; the breaker re-probes on its own schedule
+                    breaker.record_failure()
+                    stats["degraded_dispatches"] += 1
+                    reports = None
+            if reports is None:
+                res = engine.evaluate_layouts(
+                    plan, batch, chunk[0]["edges_p"], n_v, n_e,
+                    use_kernels=use_kernels, device=self.device)
+                reports = scores_from_batch(res, n_v, n_e)
+        if self.mesh is not None:
+            # the fused rung served while a mesh exists: feed the open
+            # breaker's half-open countdown (a no-op otherwise)
+            breaker.record_fallback_success()
         return faults.storm_overflow(reports)
 
     # -- the hung-dispatch watchdog ------------------------------------------
@@ -348,10 +472,11 @@ class EvalSession:
         the device.
 
         An abandoned dispatch may still complete on its worker later.  The
-        worker writes into a private stats buffer and publishes it only if
-        the watchdog has not abandoned it (checked under ``_publish_lock``,
-        which the watchdog holds while marking the abandonment), so a late
-        result cannot skew ``stats`` or ``health()``."""
+        worker writes into a private stats buffer and a
+        :class:`_BreakerBuffer` and publishes them only if the watchdog has
+        not abandoned it (checked under ``_publish_lock``, which the
+        watchdog holds while marking the abandonment), so a late result
+        cannot skew ``stats`` or ``health()`` or flip the breaker."""
         timeout = self._chunk_timeout(chunk)
         if timeout is None:
             return self._dispatch(plan, chunk)
@@ -366,8 +491,10 @@ class EvalSession:
 
         def work():
             stats = Counter()
+            breaker = _BreakerBuffer(self.breaker)
             try:
-                box["reports"] = self._dispatch(plan, chunk, stats=stats)
+                box["reports"] = self._dispatch(plan, chunk, stats=stats,
+                                                breaker=breaker)
             except BaseException as err:
                 box["err"] = err
             finally:
@@ -377,6 +504,8 @@ class EvalSession:
                     if not abandoned.is_set():
                         for k, v in stats.items():
                             self._stats[k] += v
+                        for event in breaker.events:
+                            getattr(self.breaker, event)()
                 done.set()
 
         worker = threading.Thread(target=work, daemon=True,

@@ -24,9 +24,16 @@ starts are the reference's.  Inputs go through the port's
 Runs on the CUDA device unless ``device`` says otherwise.  On CUDA the
 backward's gathers accumulate with atomics, so two searches there need
 not take bit-identical trajectories; their reported scores are exact
-scores of the returned layouts all the same.  The mesh-sharded search
-(``mesh=``, ``backend="distributed"``) is not ported (ROADMAP queue 1
-item 4).
+scores of the returned layouts all the same.
+
+``backend="distributed"`` splits each step's restarts over a mesh
+(``mesh=``, or the serving policy's): every rank runs the forward and
+backward of its rows, the ranks ``all_gather`` the gradients and losses,
+and every rank applies the same AdamW update to the global arrays; the
+exact re-scores go through
+:func:`repro_torch.distributed.batched.evaluate_layouts_sharded`.  The
+restart count is padded up to a multiple of the mesh size with extra
+jittered starts.
 """
 
 from __future__ import annotations
@@ -120,7 +127,9 @@ class GradientSearch:
     ``config.temperature`` down one decade); ``jitter`` the restart
     spread as a fraction of the layout extent (restart 0 is the seed
     layout itself); ``device`` where it runs (CUDA unless the caller
-    passes another).
+    passes another, ``mesh.device`` with a mesh); ``mesh`` the
+    :class:`~repro_torch.distributed.compat.Mesh` of
+    ``backend="distributed"`` (default: the serving policy's).
     """
 
     def __init__(self, config: EvalConfig = None, *, steps: int = 100,
@@ -131,10 +140,6 @@ class GradientSearch:
                  jitter: float = 0.05, seed: int = 0, mesh=None,
                  device=None):
         self.config = config if config is not None else EvalConfig()
-        if mesh is not None or self.config.backend == "distributed":
-            raise NotImplementedError(
-                "the mesh-sharded search (mesh=, backend='distributed') is "
-                "not ported to repro_torch yet (ROADMAP queue 1 item 4)")
         if steps < 1:
             raise ValueError(f"steps must be >= 1, got {steps}")
         if restarts < 1:
@@ -155,7 +160,10 @@ class GradientSearch:
         self.final_temperature = t1
         self.jitter = float(jitter)
         self.seed = int(seed)
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = engine.resolve_device(device)
+        self.mesh = mesh
 
     # -- pieces -------------------------------------------------------------
 
@@ -164,6 +172,13 @@ class GradientSearch:
         frac = k / max(self.steps - 1, 1)
         return float(self.temperature
                      * (self.final_temperature / self.temperature) ** frac)
+
+    def _mesh(self):
+        if self.mesh is None:
+            from repro_torch.launch.elastic import serving_mesh
+            self.mesh = serving_mesh("eval", shards=self.config.shards,
+                                     device=self.device)
+        return self.mesh
 
     def _init_batch(self, pos0, edges):
         """Restart batch from a seed layout (or an explicit batch),
@@ -209,26 +224,49 @@ class GradientSearch:
             total_steps=self.steps, min_lr_frac=0.1,
             weight_decay=0.0, clip_norm=1.0)
 
-    def step(self, plan, opt_cfg, pos, state, edges, tau, valid=()):
+    def step(self, plan, opt_cfg, pos, state, edges, tau, valid=(),
+             mesh=None):
         """One search step: forward and backward of the summed soft loss
         on a leaf copy of ``pos``, then one AdamW update.  ``state`` is the
-        optimizer state ``{"m", "v", "step"}`` over ``{"pos": ...}``.
-        Returns ``(new_pos, new_state, (B,) losses, grad_norm)``."""
-        leaf = pos.detach().requires_grad_(True)
+        optimizer state ``{"m", "v", "step"}`` over ``{"pos": ...}``.  With
+        a ``mesh`` this rank differentiates its share of the restarts
+        (their losses and gradients are row-local) and the ranks gather
+        the rest.  Returns ``(new_pos, new_state, (B,) losses,
+        grad_norm)``."""
+        rows = pos
+        if mesh is not None:
+            per = pos.shape[0] // mesh.size
+            rows = pos[mesh.rank * per:(mesh.rank + 1) * per]
+        leaf = rows.detach().requires_grad_(True)
         losses = soft.soft_loss(
             plan, leaf, edges, tau, weights=self.weights,
             n_valid_vertices=valid[0] if valid else None,
             n_valid_edges=valid[1] if valid else None)
         grad, = torch.autograd.grad(losses.sum(), leaf)
+        losses = losses.detach()
+        if mesh is not None:
+            from repro_torch.distributed.collectives import all_gather
+            grad = all_gather(mesh, grad)
+            losses = all_gather(mesh, losses)
         with torch.no_grad():
             new, state, om = adamw.apply_updates(
-                {"pos": leaf.detach()}, {"pos": grad}, state, opt_cfg,
+                {"pos": pos.detach()}, {"pos": grad}, state, opt_cfg,
                 adamw.cosine_schedule(opt_cfg))
-        return new["pos"], state, losses.detach(), om["grad_norm"]
+        return new["pos"], state, losses, om["grad_norm"]
 
-    def _exact_rescore(self, plan, pos_dev, edges_dev, valid, n_v, n_e):
-        """Exact scores of the current restarts (the reported numbers)."""
-        res = engine.evaluate_layouts(plan, pos_dev, edges_dev, *valid)
+    def _exact_rescore(self, plan, pos_dev, edges_dev, valid, n_v, n_e,
+                       mesh=None):
+        """Exact scores of the current restarts (the reported numbers),
+        single-host or batch-axis sharded over ``mesh``."""
+        if mesh is not None:
+            from repro_torch.distributed.batched import \
+                evaluate_layouts_sharded
+            res = evaluate_layouts_sharded(
+                mesh, plan, pos_dev, edges_dev,
+                n_valid_vertices=valid[0] if valid else None,
+                n_valid_edges=valid[1] if valid else None)
+        else:
+            res = engine.evaluate_layouts(plan, pos_dev, edges_dev, *valid)
         return host_batch(res, n_v, n_e)
 
     # -- the run ------------------------------------------------------------
@@ -248,6 +286,21 @@ class GradientSearch:
             edges_eval = np.zeros((1, 2), np.int32)
             valid = (n_v, 0)
 
+        mesh = None
+        if self.config.backend == "distributed":
+            mesh = self._mesh()
+            pad = (-batch.shape[0]) % mesh.size
+            if pad:
+                # pad the restarts to the mesh size with extra jittered
+                # starts: diversity instead of dead rows
+                rng = np.random.default_rng(self.seed + 1)
+                noise = rng.standard_normal(
+                    (pad,) + batch.shape[1:]).astype(np.float32)
+                batch = np.concatenate(
+                    [batch, batch[:1] + self.jitter * self._extent(batch)
+                     * noise])
+                self.restarts = batch.shape[0]
+
         plan = engine.plan_readability(batch, edges_eval,
                                        **self.config.plan_kwargs())
         opt_cfg = self._resolve_opt(self._extent(batch))
@@ -259,7 +312,7 @@ class GradientSearch:
         def rescore(pos_dev, cur_plan):
             counters["rescores"] += 1
             res = self._exact_rescore(cur_plan, pos_dev, edges_dev, valid,
-                                      n_v, n_e)
+                                      n_v, n_e, mesh)
             if int(np.max(res.overflow)) > 0:
                 # the layouts outgrew the plan's capacities: grow the plan
                 # from the offending batch and re-score once
@@ -267,7 +320,7 @@ class GradientSearch:
                 cur_plan = engine.replan_on_overflow(
                     cur_plan, pos_dev.cpu().numpy(), edges_eval, res)
                 res = self._exact_rescore(cur_plan, pos_dev, edges_dev,
-                                          valid, n_v, n_e)
+                                          valid, n_v, n_e, mesh)
             return res, cur_plan
 
         init_res, plan = rescore(pos, plan)
@@ -286,7 +339,7 @@ class GradientSearch:
             tau = torch.full((), t_k, dtype=torch.float32,
                              device=self.device)
             pos, state, losses, _ = self.step(plan, opt_cfg, pos, state,
-                                              edges_dev, tau, valid)
+                                              edges_dev, tau, valid, mesh)
             if k == self.steps - 1 or (k + 1) % self.rescore_every == 0:
                 res, plan = rescore(pos, plan)
                 obj = batch_objectives(res)

@@ -202,14 +202,42 @@ def test_device_rule(monkeypatch):
     assert repr(ev).startswith("Evaluator(EvalConfig(")
 
 
-@pytest.mark.parametrize("kw", [dict(backend="distributed"),
-                                dict(backend="graph_sharded"),
-                                dict(precision="bfloat16")])
+@pytest.mark.parametrize("kw", [dict(precision="bfloat16")])
 def test_unported_options_raise(kw):
     cfg = t_api.EvalConfig(**kw)
     assert cfg.digest() == ref_api.EvalConfig(**kw).digest()
     with pytest.raises(NotImplementedError):
         t_api.Evaluator(cfg, device="cpu")
+
+
+def test_distributed_backend_matches_fused(graph):
+    """Twin of ``tests/test_api.py``'s: the distributed front door (here on
+    a one-rank mesh: exact row-sharded N_c, strip-sharded E_c / E_ca)
+    against the reference's fused scores; the graph-sharded backend and
+    the distributed batch too."""
+    pos, edges = graph
+    fused = ref_api.Evaluator(ref_api.EvalConfig(
+        radius=RADIUS, n_strips=N_STRIPS)).evaluate(pos, edges)
+    for backend in ("distributed", "graph_sharded"):
+        tc, _ = cfgs(backend=backend)
+        ev = t_api.Evaluator(tc, device="cpu")
+        dist = ev.evaluate(pos, edges)
+        assert dist.node_occlusion == fused.node_occlusion, backend
+        assert dist.edge_crossing == fused.edge_crossing, backend
+        np.testing.assert_allclose(dist.edge_crossing_angle,
+                                   fused.edge_crossing_angle, rtol=1e-5)
+        np.testing.assert_allclose(dist.minimum_angle, fused.minimum_angle,
+                                   rtol=1e-5)
+        batch = ev.evaluate_batch(np.stack([pos, pos]), edges).unbatch()
+        assert [b.edge_crossing for b in batch] == [fused.edge_crossing] * 2
+    # distributed dynamic layouts: host-tracked, each update a full
+    # re-evaluation equal to a fresh evaluate of the moved layout
+    ev = t_api.Evaluator(cfgs(backend="distributed")[0], device="cpu")
+    ev.register_layout("a", pos, edges)
+    moved = pos.copy()
+    moved[3] += np.float32(0.5)
+    got = ev.update("a", [3], moved[3:4])
+    assert got == ev.evaluate(moved, edges)
 
 
 def test_import_loads_neither_jax_nor_reference():

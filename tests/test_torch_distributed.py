@@ -1,0 +1,173 @@
+"""The port's distributed drivers on ``torch.distributed`` against the
+reference; twin of ``tests/test_distributed.py`` and of the three mesh
+cells of ``tests/test_parity_matrix.py``.
+
+Each rank count (1, 2 and 4 gloo ranks on the CPU, ``tests/_torch_dist.py``)
+is spawned once for the module.  On a mesh of every rank (2-D, ``(2, 2)``,
+at 4 ranks: the drivers flatten its axes):
+
+* the row-sharded and ring-streamed exact N_c and the row-sharded exact
+  E_c (:mod:`repro_torch.distributed.pairwise`) equal the reference's
+  oracles (``repro.kernels.ref``, run op by op), on the layout of
+  ``tests/test_distributed.py`` and on every parity family;
+* the strip-sharded reversal sweep
+  (:func:`~repro_torch.distributed.gridded.sharded_reversal_stats`)
+  equals the reference's single-device ``bucket_reversal_stats`` (count
+  exactly, deviation sum at rtol 1e-5);
+* the parity matrix's ``distributed``, ``sharded_batched`` and
+  ``graph_sharded`` cells, through ``Evaluator(..., mesh=...)``, equal
+  the reference's fused scores on every family (integers exactly, floats
+  at rtol 1e-5); the near-parallel layouts through the distributed front
+  door are held through their integers and deviation sum;
+* the serving mesh policy caps and trims the group; a distributed search
+  equals the single-host search from the same restarts.
+
+``merge_decode_attention`` and ``sharded_embedding_lookup`` (the last two
+checks of ``tests/test_distributed.py``) belong to the seed-template
+substrate, which is not ported (ROADMAP queue 1 item 6).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import repro.api as ref_api
+from repro.core import grid as ref_grid
+from repro.core.crossing import bucket_reversal_stats
+from repro.kernels import ref as ref_oracles
+import _torch_dist as dist_
+from repro_torch.kernels.fixtures import parity_family
+from test_torch_kernels import NEAR_PARALLEL_REFERENCE, check_near_parallel
+
+RTOL = 1e-5
+WORLDS = (1, 2, 4)
+CELLS = ("distributed", "sharded_batched", "graph_sharded")
+INT_FIELDS = ("node_occlusion", "edge_crossing", "crossing_count_for_angle")
+FLOAT_FIELDS = ("minimum_angle", "edge_length_variation",
+                "edge_crossing_angle")
+
+
+def oracles(pos, edges, radius):
+    """The reference's exact N_c and E_c, op by op."""
+    x, y = jnp.asarray(pos[:, 0]), jnp.asarray(pos[:, 1])
+    p, q = pos[edges[:, 0]], pos[edges[:, 1]]
+    occ = int(ref_oracles.occlusion_count_ref(x, y, radius))
+    cross = int(ref_oracles.crossing_count_ref(
+        jnp.asarray(p[:, 0]), jnp.asarray(p[:, 1]), jnp.asarray(q[:, 0]),
+        jnp.asarray(q[:, 1]), jnp.asarray(edges[:, 0]),
+        jnp.asarray(edges[:, 1])))
+    return occ, cross
+
+
+@pytest.fixture(scope="module")
+def started():
+    """The rank processes, started before the reference results are made
+    so that both run at once."""
+    return dist_.start_worlds(WORLDS, "distributed")
+
+
+@pytest.fixture(scope="module")
+def runs(started, ref):
+    return dist_.finish_worlds(started)
+
+
+@pytest.fixture(scope="module")
+def ref(started):
+    pos, edges = dist_.distributed_graph()
+    out = {"oracles": oracles(pos, edges, 2.0)}
+    segs = ref_grid.build_strip_segments(jnp.asarray(pos),
+                                         jnp.asarray(edges), 64, 16384)
+    buckets = ref_grid.bucketize_segments(segs, 64, cap=128)
+    (cnt,) = bucket_reversal_stats(buckets)
+    cnt_a, dev = bucket_reversal_stats(buckets, ideal_angle=1.2)
+    out["strip"] = (int(cnt), int(cnt_a), float(dev))
+    for kind in dist_.FAMILIES:
+        fpos, fedges = parity_family(kind)
+        out[kind] = (ref_api.Evaluator(ref_api.EvalConfig(
+            radius=dist_.RADIUS, n_strips=dist_.N_STRIPS)).evaluate(
+            fpos, fedges), oracles(fpos, fedges, dist_.RADIUS))
+    return out
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_pairwise_drivers_match_oracles(runs, ref, world):
+    out = runs[world]
+    assert out["mesh_shape"] == ([2, 2] if world == 4 else [world])
+    occ, cross = ref["oracles"]
+    assert out["occlusion"] == occ
+    assert out["ring_occlusion"] == occ
+    assert out["crossing"] == cross
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_strip_sharded_matches_single_device(runs, ref, world):
+    out = runs[world]
+    cnt, cnt_a, dev = ref["strip"]
+    assert out["strip_sharded"] == cnt
+    assert out["strip_sharded_angle"][0] == cnt_a == cnt
+    np.testing.assert_allclose(out["strip_sharded_angle"][1], dev,
+                               rtol=RTOL)
+    assert out["strip_single_angle"][0] == cnt
+
+
+@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("kind", dist_.FAMILIES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_parity_matrix_mesh_cells(runs, ref, world, kind, cell):
+    got = runs[world]["families"][kind][cell]
+    want = ref[kind][0]
+    assert got["overflow"] == 0
+    for f in INT_FIELDS:
+        assert got[f] == getattr(want, f), (world, kind, cell, f)
+    for f in FLOAT_FIELDS:
+        np.testing.assert_allclose(got[f], getattr(want, f), rtol=RTOL,
+                                   err_msg=f"{world}/{kind}/{cell}/{f}")
+
+
+@pytest.mark.parametrize("kind", dist_.FAMILIES)
+@pytest.mark.parametrize("world", WORLDS)
+def test_pairwise_drivers_on_families(runs, ref, world, kind):
+    got = runs[world]["families"][kind]
+    occ, cross = ref[kind][1]
+    assert got["occlusion"] == got["ring_occlusion"] == occ
+    assert got["crossing"] == cross
+    # the exact N_c is the grid's (paper Table 3)
+    assert got["distributed"]["node_occlusion"] == occ
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_near_parallel_ints_and_deviation_sum(runs, world):
+    check_near_parallel(runs[world]["near_parallel"],
+                        NEAR_PARALLEL_REFERENCE)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_serving_mesh_policy(runs, world):
+    """The whole group by default, capped by ``shards`` and trimmed to a
+    power of two (3 -> 2 on 4 ranks); ``Evaluator`` brings up the same."""
+    out = runs[world]
+    assert out["serving_mesh"] == {
+        "None": [world, ["graph"]], "1": [1, ["graph"]],
+        "2": [min(2, world), ["graph"]], "3": [min(2, world), ["graph"]]}
+    assert out["evaluator_mesh"] == world
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_distributed_search_matches_single_host(runs, world):
+    """Twin of ``tests/test_search.py::
+    test_distributed_backend_matches_single_host_start``: the sharded
+    step (each rank differentiates its restarts, the ranks gather) takes
+    the single-host search's trajectory from the same restarts, padded
+    up to the mesh size."""
+    out = runs[world]["search"]
+    dist, single = out["distributed"], out["fused"]
+    assert dist["restarts"] == max(2, world)
+    assert np.all(np.isfinite(dist["positions"]))
+    assert dist["improvement"] >= 0
+    for k in ("init_positions", "restarts", "counters", "init_scores",
+              "scores"):
+        assert dist[k] == single[k], k
+    np.testing.assert_allclose(dist["positions"], single["positions"],
+                               rtol=RTOL)
+    np.testing.assert_allclose(dist["losses"][1:], single["losses"][1:],
+                               rtol=RTOL)

@@ -2,8 +2,11 @@
 ``EvalSession`` (on the CPU), held against the reference session under an
 equal plan.  Each slot's outcome (error type, located index and reason,
 or scores) and every counter equal the reference's: the twins of the
-non-mesh tests of ``tests/test_faults.py``.  The mesh-loss and
-breaker-cycle tests wait for the port's mesh rung.
+non-mesh tests of ``tests/test_faults.py``.  Its mesh-loss and
+breaker-cycle tests run the batch-sharded rung on 2 and 4 ranks
+(``tests/test_torch_sharded_batched.py``); here the graph-sharded rung on
+a one-rank mesh (the reference's one-device mesh) goes through the same
+cycle, twinned.
 
 Hangs are armed with ``hang_seconds`` of at most 2 and a
 ``dispatch_timeout`` of at most 0.5 s.
@@ -385,6 +388,42 @@ def test_health_snapshot_single_host():
     assert before["dispatch_mode"] == "single-host"
     assert before["mesh"] is None and before["validation"] == "strict"
     assert after["plans_cached"] == 1
+
+
+def test_graph_sharded_breaker_cycle_matches_reference():
+    """``backend="graph_sharded"`` on a one-rank mesh: an injected mesh
+    loss degrades to the fused rung (the request still scores), the open
+    breaker re-probes on the next dispatch (``probe_interval=1``), a
+    rejected probe re-opens it and the next probe heals it.  Outcomes,
+    breaker states, injections and counters equal the reference's."""
+    pos, edges = graph()
+
+    def run(pkg):
+        sess = make_session(pkg, dict(radius=RADIUS, n_strips=N_STRIPS,
+                                      backend="graph_sharded"),
+                            probe_interval=1)
+        outs, states = [], []
+        for plan in (dict(mesh_loss_dispatches=0), {},
+                     dict(mesh_loss_dispatches=0), dict(reject_probes=0),
+                     {}):
+            with pkg.faults.FaultPlan(**plan) as fp:
+                outs.append(sess.evaluate_batch([(pos, edges)]))
+            h = sess.health()
+            states.append((h["breaker_state"], h["dispatch_mode"],
+                           h["status"], dict(fp.injected)))
+        return outs, states, sess.stats
+
+    (outs, states, stats), (ref_outs, ref_states, ref_stats) = \
+        run(PORT), run(REF)
+    for got, ref in zip(outs, ref_outs):
+        assert_same_outcomes(got, ref)
+    assert states == ref_states
+    assert_same_stats(stats, ref_stats)
+    assert [s[0] for s in states] == ["half_open", "closed", "half_open",
+                                      "half_open", "closed"]
+    assert (stats["breaker_opens"], stats["probes"],
+            stats["auto_restores"], stats["degraded_dispatches"]) == \
+        (3, 3, 2, 3)
 
 
 def test_degenerate_graphs_end_to_end():

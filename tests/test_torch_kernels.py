@@ -561,3 +561,104 @@ def test_near_parallel_eca_on_card(cuda, backend, mode):
     for g, r in zip(got, NEAR_PARALLEL_REFERENCE):
         np.testing.assert_allclose(g.edge_crossing_angle,
                                    r["edge_crossing_angle"], rtol=RTOL)
+
+
+# ---------------------------------------------------------------------------
+# row ranges (the row-sharded drivers' launches of kernels 2 and 3)
+# ---------------------------------------------------------------------------
+
+def row_ranges(n, tile, parts):
+    """``parts`` tile-aligned row ranges partitioning ``[0, n)``; the last
+    may be empty."""
+    per = -(-(n // tile) // parts) * tile
+    return [(min(i * per, n), min((i + 1) * per, n)) for i in range(parts)]
+
+
+def occlusion_rows_case(device, parts):
+    """Occlusion arrays (the exact-threshold points and 1,500 random ones,
+    some invalid) padded to ``parts`` whole tiles per range."""
+    rng = np.random.default_rng(5)
+    pos = np.concatenate([boundary_points(0.5),
+                          rng.uniform(0, 30, (1500, 2)).astype(np.float32)])
+    n = pos.shape[0]
+    unit = parts * t_occ.TILE
+    n_pad = -(-n // unit) * unit
+    x, y, ok = (np.zeros(n_pad, np.float32), np.zeros(n_pad, np.float32),
+                np.zeros(n_pad, bool))
+    x[:n], y[:n], ok[:n] = pos[:, 0], pos[:, 1], rng.random(n) < 0.9
+    return _torch([x, y, ok], device)
+
+
+def crossing_rows_case(device, parts):
+    """The crossing kernels' arrays of ``random_segments(2000)`` padded to
+    ``parts`` whole tiles per range (ids -1 / -2, invalid)."""
+    args = list(edge_arrays(random_segments(2000, seed=17), device))
+    n = args[0].shape[0]
+    unit = parts * t_cross.TILE
+    n_pad = -(-n // unit) * unit
+    fills = (0.0, 0.0, 0.0, 0.0, 0.0, -1, -2, False)
+    return [t_ops._pad1(a, n_pad, f) for a, f in zip(args, fills)]
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3, 4])
+def test_row_ranges_partition_the_plain_counts(parts):
+    """Over tile-aligned row ranges that partition the rows, the row-range
+    plain versions sum to the whole count (and each range's wrapper on the
+    CPU is its plain version, no launch counted)."""
+    x, y, ok = occlusion_rows_case("cpu", parts)
+    ranges = row_ranges(x.shape[0], t_occ.TILE, parts)
+    before = t_occ.occlusion_pairs_rows.LAUNCHES
+    got = [int(t_occ.occlusion_pairs_rows(x, y, ok, 0.5, *r))
+           for r in ranges]
+    assert t_occ.occlusion_pairs_rows.LAUNCHES == before
+    assert sum(got) == int(t_occ.occlusion_pairs_plain(x, y, ok, 0.5)) > 0
+    x1, y1, x2, y2, _, v, u, ok = crossing_rows_case("cpu", parts)
+    ranges = row_ranges(x1.shape[0], t_cross.TILE, parts)
+    got = [int(t_cross.crossing_count_rows(x1, y1, x2, y2, v, u, ok, *r))
+           for r in ranges]
+    want = int(t_cross.crossing_count_plain(x1, y1, x2, y2, v, u, ok))
+    assert sum(got) == want > 0
+
+
+def test_row_tile_count():
+    """The partials a row-range launch writes: the triangle of its own
+    tiles and the rectangle past them (``csrc/row_tiles.cuh``)."""
+    n_t = 7
+    for t0 in range(n_t + 1):
+        for m in range(n_t - t0 + 1):
+            tiles = sum(1 for bi in range(t0, t0 + m)
+                        for bj in range(bi, n_t))
+            assert t_occ.row_tile_count(n_t, t0, m) == tiles
+    assert t_occ.row_tile_count(n_t, 0, n_t) == n_t * (n_t + 1) // 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("parts", [1, 2, 3, 4])
+def test_row_range_kernels_match_plain_on_card(cuda, parts):
+    """Kernels 2 and 3 on each row range of a partition (a trailing empty
+    range launches nothing) against their plain versions on the same
+    range; the ranges sum to the full-range launch."""
+    for wrapper, plain, full, case, tile, call in (
+            (t_occ.occlusion_pairs_rows,
+             lambda a, r: t_occ.occlusion_pairs_plain(*a, 0.5, rows=r),
+             lambda a: t_occ.occlusion_pairs(*a, 0.5),
+             occlusion_rows_case, t_occ.TILE,
+             lambda a, r: t_occ.occlusion_pairs_rows(*a, 0.5, *r)),
+            (t_cross.crossing_count_rows,
+             lambda a, r: t_cross.crossing_count_plain(*a, rows=r),
+             lambda a: t_cross.crossing_count(*a),
+             lambda d, p: [c for i, c in enumerate(crossing_rows_case(d, p))
+                           if i != 4],
+             t_cross.TILE,
+             lambda a, r: t_cross.crossing_count_rows(*a, *r))):
+        args = case(cuda, parts)
+        ranges = row_ranges(args[0].shape[0], tile, parts)
+        total = 0
+        for r in ranges:
+            before = wrapper.LAUNCHES
+            got = int(call(args, r))
+            torch.cuda.synchronize()
+            assert wrapper.LAUNCHES == before + (r[0] < r[1])
+            assert got == int(plain(args, r)), r
+            total += got
+        assert total == int(full(args))

@@ -23,11 +23,13 @@
   port's final objectives must equal the reference engine's objectives
   of the port's final layouts (rtol 1e-6), and each run must improve.
 * Twins of every other case of ``tests/test_search.py``:
-  ``test_distributed_backend_matches_single_host_start`` becomes a check
-  that ``backend="distributed"`` (and ``mesh=``) raise
-  ``NotImplementedError``; ``test_one_soft_trace_per_search`` keeps its
-  ``replans`` and ``rescores`` assertions and drops ``soft_traces`` (eager
-  PyTorch traces nothing).
+  ``test_distributed_backend_matches_single_host_start`` runs the
+  sharded step on a one-rank mesh and requires the single-host search's
+  results from the same restarts (the 1, 2 and 4 rank cases are in
+  ``tests/test_torch_distributed.py``);
+  ``test_one_soft_trace_per_search`` keeps its ``replans`` and
+  ``rescores`` assertions and drops ``soft_traces`` (eager PyTorch
+  traces nothing).
 * ``fruchterman_reingold`` against the reference at ``n_iter=3``, rtol
   1e-4: FR is chaotic, so over more iterations float32 rounding (the
   reference is jitted, with FMAs, and its scatter-add sums in its own
@@ -340,16 +342,25 @@ def test_bad_knobs_rejected():
         GradientSearch(CFG, temperature=-1.0, device="cpu")
 
 
-def test_distributed_backend_is_not_ported():
-    """Twin of ``test_distributed_backend_matches_single_host_start``: the
-    mesh-sharded search is ROADMAP queue 1 item 4, so both of its doors
-    raise ``NotImplementedError`` naming it."""
+def test_distributed_backend_matches_single_host_start():
+    """``backend="distributed"`` shards the step over the batch axis (here
+    a one-rank mesh brought up by the serving policy); from the same
+    restarts it takes the single-host search's steps and exact scores."""
+    pos, edges = make_family("random")
     cfg = EvalConfig(radius=RADIUS, n_strips=N_STRIPS,
                      backend="distributed")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        GradientSearch(cfg, steps=4, restarts=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        GradientSearch(CFG, mesh=object(), device="cpu")
+    gs = GradientSearch(cfg, steps=4, restarts=2, rescore_every=4, seed=3,
+                        device="cpu")
+    res = gs.run(pos, edges)
+    assert gs.mesh is not None and gs.mesh.size == 1
+    assert np.all(np.isfinite(res.positions))
+    assert res.restarts >= 2
+    assert res.improvement >= 0
+    single = GradientSearch(CFG, steps=4, restarts=2, rescore_every=4,
+                            seed=3, device="cpu").run(pos, edges)
+    np.testing.assert_array_equal(res.positions, single.positions)
+    for got, want in zip(res.scores, single.scores):
+        same_scores(got, want, "distributed")
 
 
 def test_objective_matches_normalized_mean():

@@ -216,25 +216,67 @@ def test_session_exposes_breaker_state():
 
 
 def test_mesh_and_incremental_paths_are_not_ported_yet():
+    """Both paths are ported now: the session takes the mesh knobs (a
+    one-rank mesh, ``probe_interval``, ``backend="graph_sharded"``) and
+    the incremental knob, and their counters move."""
+    from repro_torch.distributed.compat import make_mesh
     cfg = PORT.keys.EvalConfig(radius=RADIUS)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        EvalSession(cfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        EvalSession(PORT.keys.EvalConfig(backend="graph_sharded"),
-                    device="cpu")
-    # the breaker's probe_interval matters only with a mesh rung
-    with pytest.raises(NotImplementedError, match="item 10"):
-        EvalSession(cfg, device="cpu", probe_interval=8)
-    # the incremental path is ported (tests/test_torch_incremental.py
-    # twins it): its knob is accepted and its counters move
-    sess = EvalSession(cfg, device="cpu", update_dirty_threshold=0.25)
     pos, edges = graph()
+    mesh = make_mesh((1,), ("eval",), device="cpu")
+    sess = EvalSession(cfg, mesh=mesh, probe_interval=3,
+                       update_dirty_threshold=0.25)
+    assert sess.device.type == "cpu" and sess.breaker.probe_interval == 3
     sess.register_layout("a", pos, edges)
     sess.update("a", [0], pos[:1] + np.float32(0.1))
-    # the counters of the mesh paths still to port are there, and stay 0
     s = sess.stats
-    assert s["sharded_dispatches"] == s["graph_sharded_dispatches"] == 0
     assert s["updates"] == s["delta_hits"] + s["delta_fallbacks"] == 1
+    # a one-rank mesh serves batches single-host: no sharded dispatch
+    assert s["sharded_dispatches"] == s["graph_sharded_dispatches"] == 0
+    assert sess.health()["mesh"] == {"devices": 1, "active": True}
+    gsess = EvalSession(PORT.keys.EvalConfig(radius=RADIUS,
+                                             backend="graph_sharded"),
+                        device="cpu")
+    gsess.evaluate(pos, edges)
+    assert gsess.stats["graph_sharded_dispatches"] == 1
+    assert gsess.health()["dispatch_mode"] == "graph_sharded"
+
+
+# ---------------------------------------------------------------------------
+# elastic mesh bring-up policy (the serving-side default); the 2 and 4
+# rank cases are in tests/test_torch_distributed.py
+# ---------------------------------------------------------------------------
+
+def test_choose_mesh_shape_one_axis_is_pow2():
+    from repro.launch.elastic import choose_mesh_shape as ref_choose
+    from repro_torch.launch.elastic import choose_mesh_shape
+    for n in (1, 4, 6, 7, 8):
+        assert choose_mesh_shape(n, axes=1) == ref_choose(n, axes=1)
+    assert choose_mesh_shape(6, axes=1) == (4,)
+    for n in (1, 2, 8, 12, 48):
+        assert choose_mesh_shape(n) == ref_choose(n)
+    with pytest.raises(ValueError):
+        choose_mesh_shape(4, axes=3)
+
+
+def test_serving_mesh_caps_and_names():
+    from repro_torch.launch.elastic import serving_mesh
+    mesh = serving_mesh("graph", shards=1, device="cpu")
+    assert mesh.axis_names == ("graph",)
+    assert mesh.size == 1
+    mesh = serving_mesh(device="cpu")
+    assert mesh.axis_names == ("eval",)
+    assert mesh.size == 1                       # no process group here
+    assert mesh.size & (mesh.size - 1) == 0     # power of two
+    assert mesh.device.type == "cpu"
+
+
+def test_evaluator_mesh_uses_serving_policy():
+    from repro_torch.api import Evaluator
+    ev = Evaluator(PORT.keys.EvalConfig(backend="distributed", shards=1),
+                   device="cpu")
+    mesh = ev._mesh()
+    assert mesh.axis_names == ("eval",) and mesh.size == 1
+    assert ev._mesh() is mesh
 
 
 def test_session_rejects_the_non_session_backends_like_reference():
