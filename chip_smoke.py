@@ -8,7 +8,7 @@ JAX or of the JAX package.
 
 Phases (any failed check raises):
 
-1. **Build** the four hand-written kernels from
+1. **Build** the hand-written kernels (four sources) from
    ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one
    compiler per source, started together) and print the card's name and
    power limit.
@@ -104,6 +104,30 @@ Phases (any failed check raises):
    strip-reversal launch of (h) is held against the plain version, and
    every row-range launch (kernel, size, rows) is checked, timed and
    bounded.  Times of two ranks on one card are no speedup.
+   (i) the main path at ``precision="bfloat16"`` on (a)'s layout and
+   (b)'s batch: (i1) fused ``evaluate``, (i2) ``evaluate_batch`` B=8,
+   (i3) ``backend="kernels"``, (i4) ``ReadabilityServer`` on the 8
+   requests, against ``BF16_REFERENCE`` (the reference run op by op in
+   bfloat16; integers equal, floats at ``BF16_RTOL``).  The fused paths
+   launch the bfloat16 instantiation of the strip-reversal kernel; the
+   kernels route launches the occlusion-pair kernel's bfloat16
+   instantiation and sweeps float32 buckets, as the reference's wrapper
+   casts them.  Every bfloat16 launch is captured and held against its
+   plain version on the card, then each launched shape is timed and
+   bounded (bfloat16 bytes), and each path's median is printed beside
+   its float32 counterpart's.
+   (j) the LM serving path: (j1) the five LM smoke configs at
+   ``dtype=float32`` with parameters from ``numpy_params(cfg,
+   LM_SEED)``, ``lm_generate``'s greedy tokens equal to
+   ``LM_REFERENCE`` and the prefill logits at ``LM_RTOL``; (j2) qwen3-4b
+   at its published width and depth in bfloat16 (float32 parameters
+   from a CUDA generator, cast at each use): prefill of
+   ``LM_FULL_BATCH`` x ``LM_FULL_PROMPT`` tokens, ``lm_generate`` of
+   ``LM_FULL_NEW`` tokens, the last decode's logits against a fresh
+   prefill of the extended sequence (``LM_BF16_REL_L2``), prefill and
+   per-token decode times and peak memory; (j3)
+   ``merge_decode_attention`` on a one-rank NCCL group against float32
+   unsharded attention over (j2)'s layer-0 cache.
 4. **Timings**: median of 5 CUDA-event-timed runs after a warm-up, for
    (a)-(e3) and (e5); for (f), over 2 replays of the drag on fresh
    sessions, the median and p95 of a frame's ``update`` (host clock; the
@@ -123,8 +147,10 @@ Phases (any failed check raises):
    are summed over its launches in the pass.
 
 The last lines are a ``{"kernels": [...]}`` JSON line (the four kernels
-over (a)-(g), and the row-range launches of kernels 2 and 3 over (h) as
-``occlusion_pairs_rows`` and ``segment_crossing_rows``), the card line
+over (a)-(g), the row-range launches of kernels 2 and 3 over (h) as
+``occlusion_pairs_rows`` and ``segment_crossing_rows``, and the bfloat16
+instantiations of kernels 1 and 2 over (i) as ``strip_reversal_bf16``
+and ``occlusion_pairs_bf16``), the card line
 from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
 ``python3 chip_smoke.py --rank R --world W --port P`` is one rank of
 (h)'s gloo group, which the script starts itself.
@@ -446,6 +472,255 @@ ENHANCED_REFERENCE = {
     },
     "count_occlusions_enhanced": {"count": 1538901, "overflow": 0},
 }
+
+# (i): the reference's op-by-op bfloat16 run of (a)-(b)'s inputs
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --bf16
+# Floats are held at two bfloat16 ulps (2^-7 relative): sums run in
+# another order than the reference's and round to bfloat16.
+BF16_RTOL = 2.0 ** -7
+BF16_REFERENCE = {'fused': {'node_occlusion': 1284307,
+           'minimum_angle': 0.484375,
+           'edge_length_variation': 0.013074737973511219,
+           'edge_crossing': 30403,
+           'edge_crossing_angle': 0.78125,
+           'crossing_count_for_angle': 30403,
+           'overflow': 0},
+ 'batch': [{'node_occlusion': 1284307,
+            'minimum_angle': 0.484375,
+            'edge_length_variation': 0.013074737973511219,
+            'edge_crossing': 1727,
+            'edge_crossing_angle': 0.8203125,
+            'crossing_count_for_angle': 1727,
+            'overflow': 78017},
+           {'node_occlusion': 1286212,
+            'minimum_angle': 0.47265625,
+            'edge_length_variation': 0.012934901751577854,
+            'edge_crossing': 1938,
+            'edge_crossing_angle': 0.8203125,
+            'crossing_count_for_angle': 1938,
+            'overflow': 79840},
+           {'node_occlusion': 1286859,
+            'minimum_angle': 0.47265625,
+            'edge_length_variation': 0.012934901751577854,
+            'edge_crossing': 1955,
+            'edge_crossing_angle': 0.8203125,
+            'crossing_count_for_angle': 1955,
+            'overflow': 79681},
+           {'node_occlusion': 1286485,
+            'minimum_angle': 0.47265625,
+            'edge_length_variation': 0.012934901751577854,
+            'edge_crossing': 1900,
+            'edge_crossing_angle': 0.81640625,
+            'crossing_count_for_angle': 1900,
+            'overflow': 79656},
+           {'node_occlusion': 1286534,
+            'minimum_angle': 0.47265625,
+            'edge_length_variation': 0.012934901751577854,
+            'edge_crossing': 1915,
+            'edge_crossing_angle': 0.81640625,
+            'crossing_count_for_angle': 1915,
+            'overflow': 80295},
+           {'node_occlusion': 1286543,
+            'minimum_angle': 0.47265625,
+            'edge_length_variation': 0.012934901751577854,
+            'edge_crossing': 1933,
+            'edge_crossing_angle': 0.8125,
+            'crossing_count_for_angle': 1933,
+            'overflow': 80042},
+           {'node_occlusion': 1286773,
+            'minimum_angle': 0.47265625,
+            'edge_length_variation': 0.012934901751577854,
+            'edge_crossing': 1953,
+            'edge_crossing_angle': 0.81640625,
+            'crossing_count_for_angle': 1953,
+            'overflow': 80099},
+           {'node_occlusion': 1286194,
+            'minimum_angle': 0.47265625,
+            'edge_length_variation': 0.012934901751577854,
+            'edge_crossing': 1978,
+            'edge_crossing_angle': 0.8203125,
+            'crossing_count_for_angle': 1978,
+            'overflow': 79903}],
+ 'kernels': {'node_occlusion': 1284382,
+             'minimum_angle': 0.484375,
+             'edge_length_variation': 0.013074737973511219,
+             'edge_crossing': 30403,
+             'edge_crossing_angle': 0.7818988561630249,
+             'crossing_count_for_angle': 30403,
+             'overflow': 0},
+ 'serve': [{'node_occlusion': 1284307,
+            'minimum_angle': 0.484375,
+            'edge_length_variation': 0.013074737973511219,
+            'edge_crossing': 30403,
+            'edge_crossing_angle': 0.78125,
+            'crossing_count_for_angle': 30403,
+            'overflow': 0},
+           {'node_occlusion': 1286212,
+            'minimum_angle': 0.47265625,
+            'edge_length_variation': 0.012934901751577854,
+            'edge_crossing': 30853,
+            'edge_crossing_angle': 0.78125,
+            'crossing_count_for_angle': 30853,
+            'overflow': 0},
+           {'node_occlusion': 1286859,
+            'minimum_angle': 0.47265625,
+            'edge_length_variation': 0.012934901751577854,
+            'edge_crossing': 31311,
+            'edge_crossing_angle': 0.78125,
+            'crossing_count_for_angle': 31311,
+            'overflow': 0},
+           {'node_occlusion': 1286485,
+            'minimum_angle': 0.47265625,
+            'edge_length_variation': 0.012934901751577854,
+            'edge_crossing': 31198,
+            'edge_crossing_angle': 0.78125,
+            'crossing_count_for_angle': 31198,
+            'overflow': 0},
+           {'node_occlusion': 1286534,
+            'minimum_angle': 0.47265625,
+            'edge_length_variation': 0.012934901751577854,
+            'edge_crossing': 31884,
+            'edge_crossing_angle': 0.78125,
+            'crossing_count_for_angle': 31884,
+            'overflow': 0},
+           {'node_occlusion': 1286543,
+            'minimum_angle': 0.47265625,
+            'edge_length_variation': 0.012934901751577854,
+            'edge_crossing': 31545,
+            'edge_crossing_angle': 0.78125,
+            'crossing_count_for_angle': 31545,
+            'overflow': 0},
+           {'node_occlusion': 1286773,
+            'minimum_angle': 0.47265625,
+            'edge_length_variation': 0.012934901751577854,
+            'edge_crossing': 32102,
+            'edge_crossing_angle': 0.78125,
+            'crossing_count_for_angle': 32102,
+            'overflow': 0},
+           {'node_occlusion': 1286194,
+            'minimum_angle': 0.47265625,
+            'edge_length_variation': 0.012934901751577854,
+            'edge_crossing': 31854,
+            'edge_crossing_angle': 0.78125,
+            'crossing_count_for_angle': 31854,
+            'overflow': 0}]}
+# per crossing, the bfloat16 deviation's four roundings (a convert and a
+# widening each) on top of REV_OPS_PER_CROSSING
+REV_OPS_BF16_ROUNDING = 8
+
+# (j1): the five LM smoke configs at float32 (tools/chip_smoke_reference.py
+# --lm): lm_generate's tokens and the prefill logits' first 8 entries and
+# norm per row.  Float32 products on the card run in full float32
+# (TF32 off) in another summation order: rtol 1e-4, atol 1e-5.
+LM_SEED, LM_BATCH, LM_PROMPT, LM_NEW = 0, 2, 16, 8
+LM_RTOL, LM_ATOL = 1e-4, 1e-5
+LM_REFERENCE = {'codeqwen1.5-7b': {'tokens': [[42, 110, 15, 88, 88, 94, 110, 42],
+                               [110, 110, 110, 110, 81, 84, 81, 84]],
+                    'prefill_logits_head': [[-1.427754521369934,
+                                             2.01348614692688,
+                                             0.9796618223190308,
+                                             0.9103478789329529,
+                                             -1.2241079807281494,
+                                             0.5565658211708069,
+                                             -0.2401045709848404,
+                                             -2.127638816833496],
+                                            [-0.22779570519924164,
+                                             -0.7448955178260803,
+                                             0.6789475083351135,
+                                             -0.3486896753311157,
+                                             -1.1200276613235474,
+                                             -1.0491267442703247,
+                                             0.4199399948120117,
+                                             -0.6879891753196716]],
+                    'prefill_logits_norm': [11.597836209393575,
+                                            11.400999175569634]},
+ 'internlm2-20b': {'tokens': [[8, 69, 101, 79, 99, 62, 8, 87],
+                              [17, 126, 68, 88, 116, 100, 126, 15]],
+                   'prefill_logits_head': [[-0.7389188408851624,
+                                            1.5042724609375,
+                                            0.49700719118118286,
+                                            0.42805200815200806,
+                                            2.3623578548431396,
+                                            -0.1544264405965805,
+                                            0.7458085417747498,
+                                            -0.6975319981575012],
+                                           [-1.2960243225097656,
+                                            -2.5112674236297607,
+                                            -0.22893299162387848,
+                                            0.7384325861930847,
+                                            0.4493400752544403,
+                                            0.36397552490234375,
+                                            0.6657441258430481,
+                                            -0.4795270264148712]],
+                   'prefill_logits_norm': [10.392465844381244,
+                                           10.018171055279065]},
+ 'qwen3-4b': {'tokens': [[45, 45, 45, 45, 45, 45, 45, 45],
+                         [14, 103, 18, 2, 18, 2, 18, 2]],
+              'prefill_logits_head': [[1.5704635381698608,
+                                       -1.4145756959915161,
+                                       0.8614832758903503,
+                                       -1.03648841381073,
+                                       0.1737363040447235,
+                                       1.5111080408096313,
+                                       -0.4172775149345398,
+                                       0.8273610472679138],
+                                      [0.3451894521713257,
+                                       -0.6854243874549866,
+                                       1.2098339796066284,
+                                       0.6658368706703186,
+                                       1.247939109802246,
+                                       -0.263495534658432,
+                                       0.6515786051750183,
+                                       -0.5024695992469788]],
+              'prefill_logits_norm': [11.7309503093634, 10.964649217087638]},
+ 'qwen2-moe-a2.7b': {'tokens': [[98, 125, 51, 25, 13, 5, 113, 7],
+                                [41, 11, 122, 113, 113, 122, 122, 122]],
+                     'prefill_logits_head': [[-0.8956657648086548,
+                                              -1.0456881523132324,
+                                              1.3850188255310059,
+                                              -0.30147239565849304,
+                                              -0.2698873281478882,
+                                              0.430183470249176,
+                                              1.1575989723205566,
+                                              0.9238046407699585],
+                                             [0.6380589008331299,
+                                              -2.1757473945617676,
+                                              0.34896692633628845,
+                                              1.5834403038024902,
+                                              -0.8293048739433289,
+                                              -0.24257104098796844,
+                                              0.4925926625728607,
+                                              0.29234814643859863]],
+                     'prefill_logits_norm': [11.109318661125911,
+                                             11.372087669898827]},
+ 'llama4-scout-17b-a16e': {'tokens': [[120, 33, 84, 45, 45, 45, 45, 96],
+                                      [95, 116, 65, 59, 79, 106, 82, 18]],
+                           'prefill_logits_head': [[0.795693039894104,
+                                                    -0.6522175073623657,
+                                                    -1.1207534074783325,
+                                                    -1.3239738941192627,
+                                                    -0.04738558828830719,
+                                                    -2.3678877353668213,
+                                                    0.867202639579773,
+                                                    0.4081200063228607],
+                                                   [-0.21198774874210358,
+                                                    -0.5306887030601501,
+                                                    -0.4257929027080536,
+                                                    -1.6279425621032715,
+                                                    0.41749462485313416,
+                                                    -0.09630225598812103,
+                                                    -0.2384946048259735,
+                                                    -0.1684015393257141]],
+                           'prefill_logits_norm': [11.519824446110267,
+                                                   10.000899048585115]}}
+# (j2): qwen3-4b at its published size, bfloat16: B x P prompt tokens,
+# N new ones; the last decode's logits against a fresh prefill, at a
+# relative L2 distance per row of at most LM_BF16_REL_L2 (the two
+# routes round bfloat16 products in another order over 36 layers).
+LM_FULL_BATCH, LM_FULL_PROMPT, LM_FULL_NEW = 4, 512, 32
+LM_BF16_REL_L2 = 0.05
+# (j3): bfloat16 scores and probabilities against float32 attention
+LM_MERGE_ATOL = 0.05
 
 INT_FIELDS = ("node_occlusion", "edge_crossing", "crossing_count_for_angle",
               "overflow")
@@ -2060,6 +2335,411 @@ def distributed_phase(cfg, pos, edges, batch, epos, eedges, dpos, dedges,
     return entries, rev_launches
 
 
+# ---------------------------------------------------------------------------
+# (i) the main path at precision="bfloat16"
+# ---------------------------------------------------------------------------
+
+class capturing_bf16:
+    """Within the block, every launch of the bfloat16 instantiation of the
+    strip-reversal or occlusion-pair kernel keeps a copy of its arguments
+    and of the kernel's result in ``self.launches`` as ``(kernel, args,
+    result)``; float32 launches pass through, counted in
+    ``self.float32``."""
+
+    def __init__(self, rev_mod, occ_mod):
+        from collections import Counter
+        self.mods = {"strip_reversal": rev_mod, "occlusion_pairs": occ_mod}
+        self.launches = []
+        self.float32 = Counter()
+
+    def __enter__(self):
+        import torch
+        self.saved = {k: m._launch for k, m in self.mods.items()}
+
+        def keeper(name, launch):
+            def keep(*args):
+                out = launch(*args)
+                if args[0].dtype == torch.bfloat16:
+                    res = tuple(t.clone() for t in out) \
+                        if isinstance(out, tuple) else out.clone()
+                    self.launches.append(
+                        (name, [a.clone() if isinstance(a, torch.Tensor)
+                                else a for a in args], res))
+                else:
+                    self.float32[name] += 1
+                return out
+            return keep
+        for k, m in self.mods.items():
+            m._launch = keeper(k, self.saved[k])
+        return self
+
+    def __exit__(self, *exc):
+        for k, m in self.mods.items():
+            m._launch = self.saved[k]
+
+
+def check_bf16_scores(label, got, want):
+    """Integers equal to the reference's bfloat16 run, floats within
+    :data:`BF16_RTOL`."""
+    for f in INT_FIELDS:
+        check(int(getattr(got, f)) == want[f],
+              f"{label}: {f} = {int(getattr(got, f))}, reference {want[f]}")
+    for f in FLOAT_FIELDS:
+        g = float(getattr(got, f))
+        check(abs(g - want[f]) <= BF16_RTOL * abs(want[f]),
+              f"{label}: {f} = {g!r}, reference {want[f]!r} (rtol "
+              f"{BF16_RTOL})")
+
+
+def reversal_bound_bf16_ms(args):
+    """:func:`reversal_bound_ms` for a bfloat16 slab: 2-byte ordinates and
+    angles, and the deviation's four roundings to bfloat16 per crossing
+    (a convert and a widening each)."""
+    import torch
+    from repro_torch.kernels.strip_reversal import strip_reversal_rows_plain
+    yl, yr, th, v, u, ok = args
+    rows, cap = yl.shape
+    n_valid = ok.sum(dim=1, dtype=torch.float64)
+    pairs = float((n_valid * (n_valid - 1) / 2).sum())
+    reversals = float(strip_reversal_rows_plain(
+        yl, yr, th, *distinct_ids(yl.shape, yl.device), ok, ideal=1.0,
+        with_angle=False)[0].sum())
+    crossings = float(strip_reversal_rows_plain(
+        *args, ideal=1.0, with_angle=False)[0].sum())
+    ops = (REV_OPS_PER_UNORDERED_PAIR * pairs
+           + REV_OPS_PER_REVERSAL * reversals
+           + (REV_OPS_PER_CROSSING + REV_OPS_BF16_ROUNDING) * crossings)
+    return bound(rows * cap * (3 * 2 + 2 * 4 + 1) + rows * (8 + 4), ops)
+
+
+def bf16_kernel_rows(captured, ideal, card):
+    """Each captured bfloat16 launch held against the plain version on the
+    same arguments (counts equal, deviation partials at rtol
+    :data:`RTOL`); then each launched shape timed alone on the device,
+    through its wrapper and as the plain version, with its bound.  Returns
+    the kernels line's two bfloat16 entries."""
+    import torch
+    from repro_torch.kernels._build import entry
+    from repro_torch.kernels.occlusion_pairs import (occlusion_pairs,
+                                                     occlusion_pairs_plain)
+    from repro_torch.kernels.strip_reversal import (
+        strip_reversal_rows, strip_reversal_rows_plain)
+    err = {"strip_reversal": 0.0, "occlusion_pairs": 0.0}
+    shapes = {}
+    for name, args, res in captured:
+        if name == "strip_reversal":
+            yl, yr, th, v, u, ok, ideal_, with_angle = args
+            pc, pd = strip_reversal_rows_plain(yl, yr, th, v, u, ok,
+                                               ideal=ideal_,
+                                               with_angle=with_angle)
+            torch.cuda.synchronize()
+            check(torch.equal(res[0], pc), f"(i) strip_reversal_bf16 "
+                  f"counts differ at {tuple(yl.shape)}")
+            check(torch.allclose(res[1].double(), pd.double(), rtol=RTOL,
+                                 atol=0.0),
+                  f"(i) strip_reversal_bf16 deviations differ at "
+                  f"{tuple(yl.shape)}")
+            if pd.numel():
+                err[name] = max(err[name], float(
+                    (res[1].double() - pd.double()).abs().max()))
+            key = (name, tuple(yl.shape))
+            shapes.setdefault(key, [0, [yl, yr, th, v, u, ok]])
+        else:
+            x, y, ok, radius, row0, row1 = args
+            want = occlusion_pairs_plain(x, y, ok, radius, rows=(row0, row1))
+            check(int(res) == int(want),
+                  f"(i) occlusion_pairs_bf16 {int(res)} != plain {int(want)}")
+            key = (name, tuple(x.shape))
+            shapes.setdefault(key, [0, [x, y, ok], radius, int(want)])
+        shapes[key][0] += 1
+    entries = {}
+    for (name, shape), item in sorted(shapes.items()):
+        n, args = item[0], item[1]
+        if name == "strip_reversal":
+            launch = raw_launcher(name, args, ideal=ideal,
+                                  fn=entry("strip_reversal_bf16"))
+
+            def wrapper():
+                return strip_reversal_rows(*args, ideal=ideal)
+
+            def plain():
+                return strip_reversal_rows_plain(*args, ideal=ideal)
+            b_ms, by = reversal_bound_bf16_ms(args)
+            inner = 20
+        else:
+            radius, occluded = item[2], item[3]
+            launch = raw_launcher(name, args, radius=radius,
+                                  fn=entry("occlusion_pairs_bf16"))
+
+            def wrapper():
+                return occlusion_pairs(*args, radius)
+
+            def plain():
+                return occlusion_pairs_plain(*args, radius)
+            nv = float(args[2].sum())
+            b_ms, by = bound(shape[0] * 5 + 8,
+                             OCC_OPS_PER_PAIR * nv * (nv - 1) / 2
+                             + OCC_OPS_PER_OCCLUSION * occluded)
+            inner = 3 if shape[0] > 65536 else 20
+        med, lo, hi = device_ms(launch, inner)
+        check_same_result(f"{name}_bf16 {shape}", launch.result(), wrapper())
+        w_ms = cuda_ms(wrapper, inner=inner)
+        p_ms = cuda_ms(plain)
+        print(f"time {name}_bf16 (i) {shape}: device {med:.5f} ms (min "
+              f"{lo:.5f}, max {hi:.5f}; {DEVICE_READINGS} readings of "
+              f"{inner} launches), wrapper {w_ms:.5f} ms, plain {p_ms:.4f} "
+              f"ms, bound {b_ms:.5f} ms ({by}); {n} launches in (i) on "
+              f"{card}", flush=True)
+        e = entries.setdefault(name, dict(launches=0, ms=0.0, wrapper_ms=0.0,
+                                          plain_ms=0.0, bound_ms=0.0, by={}))
+        e["launches"] += n
+        for k, val in (("ms", med), ("wrapper_ms", w_ms), ("plain_ms", p_ms),
+                       ("bound_ms", b_ms)):
+            e[k] += n * val
+        e["by"][by] = e["by"].get(by, 0.0) + n * b_ms
+    out = []
+    for name in ("strip_reversal", "occlusion_pairs"):
+        check(name in entries, f"(i) launched no bfloat16 {name}")
+        e = entries[name]
+        out.append(dict(
+            name=f"{name}_bf16", route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=("src/repro/kernels/strip_reversal.py:25"
+                      if name == "strip_reversal"
+                      else "src/repro/kernels/occlusion_pairs.py:30"),
+            launches=e["launches"], max_abs_err=err[name], ms=e["ms"],
+            wrapper_ms=e["wrapper_ms"], plain_ms=e["plain_ms"],
+            bound_ms=e["bound_ms"], bound_by=max(e["by"], key=e["by"].get),
+            library_ms=None))
+    return out
+
+
+def bf16_phase(cfg, pos, edges, batch, ideal, card):
+    """(i): the main path at ``precision="bfloat16"`` on (a)'s layout and
+    (b)'s batch, against :data:`BF16_REFERENCE` (integers equal, floats at
+    :data:`BF16_RTOL`); every bfloat16 launch of kernels 1 and 2 held
+    against its plain version; each path's median beside its float32
+    counterpart.  Returns the kernels line's bfloat16 entries."""
+    import torch
+    from repro_torch.api import Evaluator
+    from repro_torch.kernels import occlusion_pairs as occ_mod
+    from repro_torch.kernels import strip_reversal as rev_mod
+    from repro_torch.launch.serve import ReadabilityServer
+    bcfg = dataclasses.replace(cfg, precision="bfloat16")
+    kcfg = dataclasses.replace(bcfg, backend="kernels")
+    reqs = [(p, edges) for p in batch]
+    evs = {"fused": Evaluator(bcfg), "kernels": Evaluator(kcfg),
+           "server": ReadabilityServer(bcfg)}
+    calls = {"i1": lambda ev: ev.evaluate(pos, edges),
+             "i2": lambda ev: ev.evaluate_batch(batch, edges),
+             "i3": lambda ev: ev.evaluate(pos, edges),
+             "i4": lambda ev: ev.evaluate_batch(reqs)}
+    which = {"i1": "fused", "i2": "fused", "i3": "kernels", "i4": "server"}
+    rev, occ = rev_mod.strip_reversal_rows, occ_mod.occlusion_pairs
+    runs, launches = {}, {}
+    with capturing_bf16(rev_mod, occ_mod) as cap:
+        for key, call in calls.items():
+            rev.LAUNCHES_BF16 = occ.LAUNCHES_BF16 = 0
+            runs[key] = call(evs[which[key]])
+            launches[key] = (rev.LAUNCHES_BF16, occ.LAUNCHES_BF16)
+    print(f"(i) bfloat16 launches (strip_reversal_bf16, "
+          f"occlusion_pairs_bf16) per path: {launches}; float32 launches "
+          f"(the kernels route sweeps float32 buckets, as the reference "
+          f"casts them): {dict(cap.float32)}", flush=True)
+    check(all(launches[k][0] > 0 for k in ("i1", "i2", "i4")),
+          f"(i) fused paths launched {launches}")
+    # the session replans when the bfloat16 layout outgrows the plan made
+    # from its float32 coordinates, as the reference's does: each
+    # evaluation launches kernel 2 once
+    check(launches["i3"][1] >= 1 and cap.float32["strip_reversal"]
+          == 2 * launches["i3"][1],
+          f"(i3) launched {launches['i3']} and float32 {dict(cap.float32)}")
+    want = BF16_REFERENCE
+    check_bf16_scores("(i1) fused bf16", runs["i1"], want["fused"])
+    for i, r in enumerate(runs["i2"].unbatch()):
+        check_bf16_scores(f"(i2)[{i}] batch bf16", r, want["batch"][i])
+    check_bf16_scores("(i3) kernels bf16", runs["i3"], want["kernels"])
+    for i, r in enumerate(runs["i4"]):
+        check(r.ok, f"(i4) request {i}: {r.error}")
+        check_bf16_scores(f"(i4)[{i}] server bf16", r, want["serve"][i])
+    print(f"(i1) {runs['i1']}")
+    print(f"(i3) {runs['i3']}")
+    entries = bf16_kernel_rows(cap.launches, ideal, card)
+    print("(i) bfloat16 main path: ok, equal to the JAX reference's op-by-op "
+          f"bfloat16 constants (ints exact, floats rtol {BF16_RTOL}); every "
+          f"bfloat16 launch equal to its plain version", flush=True)
+
+    f32 = {"fused": Evaluator(cfg),
+           "kernels": Evaluator(dataclasses.replace(cfg, backend="kernels")),
+           "server": ReadabilityServer(cfg)}
+    labels = {"i1": "evaluate fused", "i2": f"evaluate_batch B={BATCH}",
+              "i3": "evaluate kernels", "i4": f"server, {BATCH} requests"}
+    for key, call in calls.items():
+        b_ms = cuda_ms(lambda: call(evs[which[key]]))
+        f_ms = cuda_ms(lambda: call(f32[which[key]]))
+        print(f"time ({key}) {labels[key]}: bfloat16 {b_ms:.3f} ms, float32 "
+              f"{f_ms:.3f} ms (medians of {REPEATS}, CUDA events) on {card}",
+              flush=True)
+    torch.cuda.synchronize()
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# (j) the LM serving path
+# ---------------------------------------------------------------------------
+
+def lm_prompt(vocab, batch, length, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, vocab, (batch, length)).astype(np.int32)
+
+
+def lm_smoke_phase(dev):
+    """(j1): the five LM smoke configs at ``dtype=float32``, parameters from
+    ``numpy_params(cfg, LM_SEED)``: ``lm_generate``'s tokens equal to
+    :data:`LM_REFERENCE`'s, the prefill logits' head and norms at
+    :data:`LM_RTOL`."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.serve import lm_generate
+    from repro_torch.models.transformer import (Transformer, numpy_params,
+                                                params_from_reference)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in configs.ARCH_IDS[:5]:
+        cfg = dataclasses.replace(configs.get_arch(arch).smoke_config,
+                                  dtype=torch.float32)
+        model = Transformer(cfg, device=dev)
+        model.load_state_dict(params_from_reference(
+            numpy_params(cfg, LM_SEED)))
+        prompt = torch.from_numpy(lm_prompt(
+            cfg.vocab_size, LM_BATCH, LM_PROMPT, LM_SEED + 1)).to(dev)
+        _, logits = model.prefill(prompt, model.init_cache(LM_BATCH,
+                                                           LM_PROMPT))
+        tokens = lm_generate(model, prompt, LM_NEW).cpu().numpy()
+        want = LM_REFERENCE[arch]
+        check(tokens.tolist() == want["tokens"],
+              f"(j1) {arch}: tokens {tokens.tolist()}, reference "
+              f"{want['tokens']}")
+        logits = logits.double().cpu().numpy()
+        head_ok = np.allclose(logits[:, :8], want["prefill_logits_head"],
+                              rtol=LM_RTOL, atol=LM_ATOL)
+        norm = np.linalg.norm(logits, axis=1)
+        norm_ok = np.allclose(norm, want["prefill_logits_norm"],
+                              rtol=LM_RTOL)
+        check(head_ok and norm_ok,
+              f"(j1) {arch}: prefill logits {logits[:, :8].tolist()} "
+              f"(norms {norm.tolist()}), reference "
+              f"{want['prefill_logits_head']} ({want['prefill_logits_norm']})")
+        err = float(np.abs(logits[:, :8]
+                           - np.asarray(want["prefill_logits_head"])).max())
+        print(f"(j1) {arch}: {LM_NEW} greedy tokens equal, prefill logits "
+              f"within rtol {LM_RTOL} (max abs err {err!r})", flush=True)
+
+
+def lm_full_phase(dev, card):
+    """(j2): qwen3-4b at its published width and depth in bfloat16:
+    prefill of B x P tokens, ``lm_generate`` of :data:`LM_FULL_NEW`
+    tokens, the last decode's logits against a fresh prefill of the
+    extended sequence.  (j3): ``merge_decode_attention`` on a one-rank
+    NCCL group against unsharded decode attention on layer 0's cache."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.distributed.collectives import merge_decode_attention
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.launch.serve import lm_generate
+    from repro_torch.models.transformer import Transformer, kv_cache_bytes
+    cfg = configs.get_arch("qwen3-4b").config
+    B, P, N = LM_FULL_BATCH, LM_FULL_PROMPT, LM_FULL_NEW
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    model = Transformer(cfg, device=dev).init_params(gen)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    print(f"(j2) {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters (float32, "
+          f"{sum(p.numel() for p in model.parameters()) * 4 / 2 ** 30:.3f} "
+          f"GiB), made in {time.perf_counter() - t0:.2f} s; KV cache at "
+          f"B={B}, {P + N} positions: "
+          f"{kv_cache_bytes(cfg, B, P + N) / 2 ** 30:.3f} GiB", flush=True)
+
+    def prefill():
+        return model.prefill(prompt, model.init_cache(B, P + N))
+
+    cache, logits = prefill()
+    check(bool(torch.isfinite(logits[:, :cfg.vocab_size].float()).all()),
+          "(j2) prefill logits are not finite")
+    prefill_ms = cuda_ms(prefill, repeats=3)
+    # the generation, timed on the host clock around synchronized calls
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cache = model.init_cache(B, P + N)
+    cache, logits = model.prefill(prompt, cache)
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out, step_ms = [nxt], []
+    for _ in range(N - 1):
+        s0 = time.perf_counter()
+        nxt, last_logits, cache = model.decode_step(nxt, cache)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+        out.append(nxt)
+    tokens = torch.stack(out, dim=1)
+    total_s = time.perf_counter() - t1
+    check(torch.equal(tokens, lm_generate(model, prompt, N)),
+          "(j2) lm_generate differs from its own prefill + decode loop")
+    peak = torch.cuda.max_memory_allocated()
+    # the last decode's logits against a fresh prefill of the prompt and
+    # the first N - 1 generated tokens
+    ext = torch.cat([prompt, tokens[:, :N - 1].long()], dim=1)
+    _, fresh = model.prefill(ext, model.init_cache(B, P + N))
+    a, b = last_logits.double(), fresh.double()
+    rel = float(((a - b).norm(dim=1) / b.norm(dim=1)).max())
+    agree = float((a.argmax(dim=1) == b.argmax(dim=1)).double().mean())
+    check(rel <= LM_BF16_REL_L2,
+          f"(j2) last decode vs fresh prefill: relative L2 {rel!r} > "
+          f"{LM_BF16_REL_L2}")
+    print(f"(j2) last decode logits against a fresh prefill of {P + N - 1} "
+          f"tokens: max relative L2 {rel!r} (bound {LM_BF16_REL_L2}), "
+          f"argmax agreement {agree!r}", flush=True)
+    print(f"time (j2) {cfg.name} bfloat16: prefill B={B} x {P} tokens "
+          f"{prefill_ms:.3f} ms (median of 3, CUDA events); generate {N} "
+          f"tokens {total_s:.3f} s (prefill {(t2 - t1) * 1e3:.3f} ms, decode "
+          f"per token median {statistics.median(step_ms):.3f} ms, min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}; host clock); peak "
+          f"memory allocated {peak / 2 ** 30:.3f} GiB on {card}", flush=True)
+
+    # (j3) the sequence-sharded decode merge on one NCCL rank
+    init_group("nccl", 0, 1, free_port())
+    try:
+        mesh = make_mesh((1,), ("model",), device=dev)
+        S = cache["pos"]
+        k, v = cache["k"][0, :, :S], cache["v"][0, :, :S]
+        q = torch.randn(B, cfg.n_kv_heads, cfg.d_head, generator=gen,
+                        device=dev).to(cfg.dtype)
+        got = merge_decode_attention(mesh, q, k, v, S - 1)
+        s = torch.einsum("bhd,bthd->bht", q.float(), k.float()) \
+            * cfg.d_head ** -0.5
+        want = torch.einsum("bht,bthd->bhd", torch.softmax(s, dim=-1),
+                            v.float())
+        err = float((got.float() - want).abs().max())
+        check(got.shape == want.shape and err <= LM_MERGE_ATOL,
+              f"(j3) merge_decode_attention off by {err!r}")
+        print(f"(j3) merge_decode_attention on a one-rank NCCL group, "
+              f"(B, H, dh) = {tuple(got.shape)} against {S} positions: max "
+              f"abs err {err!r} against float32 unsharded attention (atol "
+              f"{LM_MERGE_ATOL})", flush=True)
+    finally:
+        dist.destroy_process_group()
+    del model, cache
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--rank"]:
@@ -2545,6 +3225,15 @@ def main() -> int:
         cfg, pos, edges, batch, epos, eedges, dpos, dedges, ev,
         launches["b"][0], card)
 
+    # (i) the main path in bfloat16, with its own launch counts and checks
+    bf16_entries = bf16_phase(cfg, pos, edges, batch, ideal, card)
+    # (j) the LM serving path
+    t0 = time.perf_counter()
+    lm_smoke_phase(dev)
+    lm_full_phase(dev, card)
+    print(f"time (j) the LM phase: {time.perf_counter() - t0:.2f} s (wall)",
+          flush=True)
+
     # -- 4. timings --------------------------------------------------------
     path_ms = {
         "a": cuda_ms(lambda: ev.evaluate(pos, edges)),
@@ -2733,9 +3422,11 @@ def main() -> int:
             wrapper_ms=e["wrapper_ms"], plain_ms=e["plain_ms"],
             bound_ms=e["bound_ms"], bound_by=max(e["by"], key=e["by"].get),
             library_ms=None))
+    kernels += bf16_entries
     print("kernel times are summed over every launch of one pass of "
           "(a)-(g), the row-range entries over (h)'s launches (parent and "
-          "ranks); launches are counted in those runs (strip_reversal's "
+          "ranks), the bfloat16 entries over (i)'s; launches are counted "
+          "in those runs (strip_reversal's "
           f"{h_rev_launches} launches in (h) are checked there and not "
           "added); ms is the kernel alone on the device (median), "
           "wrapper_ms the wrapper's call", flush=True)

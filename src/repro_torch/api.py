@@ -15,9 +15,9 @@ exact all-pairs occlusion kernel), ``"distributed"`` (over a mesh of
 ``torch.distributed`` ranks: row-sharded N_c and strip-sharded E_c /
 E_ca for one layout, the batch axis for a batch) and ``"graph_sharded"``
 (each layout spatially partitioned over the mesh, through the session's
-degradation ladder).  ``precision="bfloat16"`` is accepted by
-:class:`EvalConfig` (its digest needs it) but raises
-``NotImplementedError`` here.
+degradation ladder).  ``precision="bfloat16"`` evaluates in bfloat16
+wherever the reference does (the single-layout ``"distributed"`` route
+evaluates in float32, as the reference's does).
 :meth:`Evaluator.register_layout` / :meth:`Evaluator.update` serve
 dynamic layouts (incremental on ``"fused"``); :meth:`Evaluator.search`
 runs the gradient layout search (:class:`SearchResult`, exact scores
@@ -135,10 +135,6 @@ class Evaluator:
             raise NotImplementedError(
                 f"backend={self.config.backend!r} is not ported to "
                 f"repro_torch yet; served: {SERVED_BACKENDS}")
-        if self.config.precision != "float32":
-            raise NotImplementedError(
-                f"precision={self.config.precision!r} is not ported to "
-                "repro_torch yet; it evaluates in float32")
         if device is None and mesh is not None:
             device = mesh.device
         self.device = engine.resolve_device(device)

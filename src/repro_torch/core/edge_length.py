@@ -13,14 +13,16 @@ from repro_torch.core.geometry import edge_lengths
 
 
 def _ml(lengths, ev, n_e, dim):
-    l_mu = torch.where(ev, lengths, 0.0).sum(dim=dim) / n_e
+    # the edge count in the lengths' dtype, as the reference converts it
+    n_f = n_e.to(lengths.dtype)
+    l_mu = torch.where(ev, lengths, 0.0).sum(dim=dim) / n_f
     mu = l_mu if dim is None else l_mu[:, None]
     diff = lengths - mu
     sq = torch.where(ev, diff * diff, 0.0)
     # all-duplicate-position guard: the squared clamp underflows to 0, so
     # 0/0 = NaN is selected away as M_l = 0 (as the reference does)
     mu_c = torch.clamp_min(l_mu, 1e-30)
-    denom = n_e * (mu_c * mu_c)
+    denom = n_f * (mu_c * mu_c)
     l_a = torch.where(denom > 0, torch.sqrt(sq.sum(dim=dim) / denom), 0.0)
     return torch.where(n_e > 1,
                        l_a / torch.sqrt(torch.clamp_min(n_e - 1, 1)), 0.0)

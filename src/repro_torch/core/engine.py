@@ -40,6 +40,13 @@ Integer metrics are equal between natural-size and padded evaluation.
 If a layout outgrows the plan's capacities, ``overflow`` says so and
 :func:`replan_on_overflow` grows the plan.
 
+**Precision**: ``precision="bfloat16"`` casts the layout to bfloat16
+(rounding float32 to nearest even, as XLA does) and every op follows
+the layout's dtype, constants rounded to it first as the reference's
+weakly typed scalars are.  The fused route sums the sweep's float32 row
+partials in bfloat16, as the reference's bfloat16 sums; the kernels
+route sweeps float32 buckets, as the reference's wrapper casts them.
+
 **Device**: tensors keep their device; numpy inputs go to ``device``,
 which defaults to CUDA (see :func:`resolve_device`).
 """
@@ -121,11 +128,8 @@ class ReadabilityPlan:
 
     @property
     def dtype(self):
-        if self.precision != "float32":
-            raise NotImplementedError(
-                f"precision={self.precision!r} is not ported yet; "
-                "repro_torch evaluates in float32")
-        return torch.float32
+        return (torch.bfloat16 if self.precision == "bfloat16"
+                else torch.float32)
 
 
 def _plain(v):
@@ -233,8 +237,10 @@ def _tiered_strip_stats(plan: ReadabilityPlan, axis_i: int, segs, B: int,
         rc, rd = strip_reversal_rows(*args, ideal=plan.ideal,
                                      with_angle=with_angle,
                                      row_block=row_block)
+        # the float32 row partials in the slab's dtype: the reference's
+        # per-row sum
         cnt = cnt + rc.reshape(B, n_t).sum(dim=1)
-        dev = dev + rd.reshape(B, n_t).sum(dim=1)
+        dev = dev + rd.to(dev.dtype).reshape(B, n_t).sum(dim=1)
     return cnt, dev, dropped
 
 
@@ -341,9 +347,10 @@ def _combine(stats, want_ec, want_eca, out):
     if want_ec:
         out["edge_crossing"] = ec_count
     if want_eca:
+        # the count in the deviation's dtype, as the reference converts it
+        count = torch.clamp_min(best_count, 1).to(best_dev.dtype)
         out["edge_crossing_angle"] = torch.where(
-            best_count > 0,
-            1.0 - best_dev / torch.clamp_min(best_count, 1), 1.0)
+            best_count > 0, 1.0 - best_dev / count, 1.0)
         out["crossing_count_for_angle"] = best_count
     # the strip decomposition is shared by E_c and E_ca, so its dropped
     # segments count once, as the max over orientations
@@ -647,7 +654,11 @@ def evaluate_graph_shard_body(plan: ReadabilityPlan, pos, edges, *, mesh,
                 rows(u, torch.int32), rows(ok), ideal=plan.ideal,
                 with_angle=want_eca, row_block=min(plan.strip_block, per_s))
             # segs.overflow is replicated: added once, outside the sum
-            stats.append((psum(mesh, rc.sum()), psum(mesh, rd.sum()),
+            # the row partials and their sum in the layout's dtype, as
+            # the reference sums them (the sum over ranks in float32)
+            dsum = rd.to(pos.dtype).sum()
+            stats.append((psum(mesh, rc.sum()),
+                          psum(mesh, dsum.float()).to(dsum.dtype),
                           psum(mesh, drop[0]) + segs.overflow))
         overflow = overflow + _combine(stats, want_ec, want_eca, out)
 

@@ -21,11 +21,25 @@ import torch
 TWO_PI = 2.0 * math.pi
 
 
+def scalar_like(value, like):
+    """``value`` as a 0-dim tensor of ``like``'s dtype on its device.
+
+    Every constant that meets a coordinate-derived tensor goes through
+    it.  JAX rounds a Python scalar to the array's dtype before the op
+    (a weakly typed scalar); PyTorch computes with the unrounded scalar,
+    which in bfloat16 rounds differently.  It is also every divisor's
+    form: CUDA turns division by a host scalar into a reciprocal
+    multiply, which is not the reference's true division.  Made by a
+    fill on the device: a copy from the host would wait for the device's
+    queue."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
 def segment_theta(x1, y1, x2, y2):
     """Undirected angle of segment with the x-axis, folded into [0, pi)."""
     theta = torch.atan2(y2 - y1, x2 - x1)
-    return torch.remainder(torch.where(theta < 0, theta + math.pi, theta),
-                           math.pi)
+    pi = scalar_like(math.pi, theta)
+    return torch.remainder(torch.where(theta < 0, theta + pi, theta), pi)
 
 
 def _safe_atan2(ex, ey):
@@ -44,21 +58,21 @@ def segment_theta_safe(x1, y1, x2, y2):
     """:func:`segment_theta` with a finite (zero) gradient at zero-length
     segments and bit-identical forward values; the soft paths use it."""
     theta = _safe_atan2(x2 - x1, y2 - y1)
-    return torch.remainder(torch.where(theta < 0, theta + math.pi, theta),
-                           math.pi)
+    pi = scalar_like(math.pi, theta)
+    return torch.remainder(torch.where(theta < 0, theta + pi, theta), pi)
 
 
 def directed_angle(x1, y1, x2, y2):
     """Directed angle of the ray (x1,y1) -> (x2,y2) in [0, 2*pi)."""
     a = torch.atan2(y2 - y1, x2 - x1)
-    return torch.where(a < 0, a + TWO_PI, a)
+    return torch.where(a < 0, a + scalar_like(TWO_PI, a), a)
 
 
 def directed_angle_safe(x1, y1, x2, y2):
     """:func:`directed_angle` with a finite (zero) gradient at zero-length
     rays (the guard of :func:`segment_theta_safe`)."""
     a = _safe_atan2(x2 - x1, y2 - y1)
-    return torch.where(a < 0, a + TWO_PI, a)
+    return torch.where(a < 0, a + scalar_like(TWO_PI, a), a)
 
 
 def edge_lengths(pos, edges):
@@ -116,7 +130,7 @@ def segments_cross_bool(p1x, p1y, q1x, q1y, p2x, p2y, q2x, q2y):
 def line_crossing_angle(theta_a, theta_b):
     """Acute crossing angle between two undirected lines, in [0, pi/2]."""
     d = torch.abs(theta_a - theta_b)
-    return torch.minimum(d, math.pi - d)
+    return torch.minimum(d, scalar_like(math.pi, d) - d)
 
 
 def crossing_angle_deviation(theta_a, theta_b, ideal):

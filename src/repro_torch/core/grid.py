@@ -24,6 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.geometry import scalar_like
+
 # Half-neighbourhood offsets (dx, dy) covering all adjacent unordered cell
 # pairs exactly once: same-cell pairs use i<j ordering, cross-cell pairs
 # use these four directed offsets.
@@ -123,14 +125,7 @@ def _full(shape, value, like):
     return torch.full(shape, value, dtype=like.dtype, device=like.device)
 
 
-def _scalar(value, like):
-    """``value`` as a 0-dim tensor of ``like``'s dtype on its device.
-
-    Used for every divisor: CUDA turns division by a host scalar into a
-    reciprocal multiply, which is not the reference's true division.
-    Made by a fill on the device: a copy from the host would wait for
-    the device's queue."""
-    return torch.full((), value, dtype=like.dtype, device=like.device)
+_scalar = scalar_like
 
 
 def _to_device(array, dev):
@@ -260,9 +255,10 @@ def cell_indices(pos, radius, origin, nx: int, ny: int, cell_size=None):
     keeps the half-neighbourhood sweep exact."""
     size = _scalar(2.0 * radius if cell_size is None else cell_size,
                    pos)
-    ix = torch.clamp(_index(torch.floor((pos[..., 0] - origin[0]) / size)),
+    ox, oy = _scalar(origin[0], pos), _scalar(origin[1], pos)
+    ix = torch.clamp(_index(torch.floor((pos[..., 0] - ox) / size)),
                      0, nx - 1).to(torch.int64)
-    iy = torch.clamp(_index(torch.floor((pos[..., 1] - origin[1]) / size)),
+    iy = torch.clamp(_index(torch.floor((pos[..., 1] - oy) / size)),
                      0, ny - 1).to(torch.int64)
     return ix, iy, iy * nx + ix
 

@@ -70,7 +70,9 @@ from repro_torch.core import engine
 from repro_torch.core import grid as gridlib
 from repro_torch.core.edge_length import edge_length_variation
 from repro_torch.core.engine import ReadabilityPlan
-from repro_torch.core.geometry import TWO_PI, directed_angle, segment_theta
+from repro_torch.core.geometry import (TWO_PI, directed_angle, scalar_like,
+                                       segment_theta)
+from repro_torch.core.min_angle import ideal_gap
 from repro_torch.core.occlusion import _cross_count, _d2
 from repro_torch.core.scores import ReadabilityScores
 from repro_torch.kernels.strip_reversal import strip_reversal_rows
@@ -183,7 +185,10 @@ def _upload(device, arrays, dtype):
     split into views).  On CUDA the copy is from pinned memory and does
     not wait for the device."""
     flat = [np.asarray(a).reshape(-1) for a in arrays]
-    t = gridlib._to_device(np.concatenate(flat).astype(_NP[dtype]), device)
+    # numpy has no bfloat16: float32 goes up and rounds on the device
+    t = gridlib._to_device(
+        np.concatenate(flat).astype(_NP.get(dtype, np.float32)),
+        device).to(dtype)
     out, off = [], 0
     for a, f in zip(arrays, flat):
         out.append(t[off:off + f.size].reshape(np.shape(a)))
@@ -222,7 +227,7 @@ def _cell_ids(x, y, plan: ReadabilityPlan):
     """Flat cell id per point -- mirror of
     :func:`repro_torch.core.grid.cell_indices`."""
     size = gridlib._scalar(plan.grid_cell_size, x)
-    ox, oy = plan.grid_origin
+    ox, oy = (gridlib._scalar(o, x) for o in plan.grid_origin)
     ix = torch.clamp(gridlib._index(torch.floor((x - ox) / size)),
                      0, plan.grid_nx - 1).to(torch.int64)
     iy = torch.clamp(gridlib._index(torch.floor((y - oy) / size)),
@@ -284,12 +289,15 @@ def _sweep(yl, yr, th, v, u, ok, shape, plan: ReadabilityPlan,
     """The strip-reversal sweep of a ``shape`` slab: the kernel on CUDA,
     its plain formula on the CPU.  Returns ``((rows,) count, (rows,)
     dev)``."""
-    return strip_reversal_rows(
+    cnt, dev = strip_reversal_rows(
         yl.reshape(shape), yr.reshape(shape), th.reshape(shape),
         v.reshape(shape).to(torch.int32).contiguous(),
         u.reshape(shape).to(torch.int32).contiguous(), ok,
         ideal=plan.ideal, with_angle=with_angle,
         row_block=min(plan.strip_block, shape[0]))
+    # the float32 row partials in the slab's dtype: the reference's
+    # per-row sum
+    return cnt, dev.to(yl.dtype)
 
 
 def _occ_rows(row_ids, vid_tab, val_tab, px, py, nbr_idx, nbr_ok, thresh):
@@ -357,10 +365,10 @@ def _ma_rows(pos, row_ids, inc_nbr, inc_deg):
         gap_min = torch.full(r.shape, np.inf, dtype=a.dtype, device=dev)
     amin = a[:, 0]
     amax = torch.gather(a, 1, torch.clamp(deg - 1, 0, D - 1)[:, None])[:, 0]
-    wrap = TWO_PI - (amax - amin)
+    wrap = scalar_like(TWO_PI, a) - (amax - amin)
     phi_min = torch.minimum(gap_min, wrap)
     counted = deg >= 1
-    ideal = TWO_PI / torch.clamp_min(deg, 1)
+    ideal = ideal_gap(deg, phi_min.dtype)
     return torch.where(counted & ok, (ideal - phi_min) / ideal, 0.0)
 
 
@@ -665,7 +673,7 @@ def _delta(plan: ReadabilityPlan, state: ResidentState, edges, n_e: int,
         ma2 = _set_rows(state.ma_dev, dirty_ma, rows)
         counted = state.inc_deg >= 1
         out["minimum_angle"] = 1.0 - ma2.sum() / torch.clamp_min(
-            counted.sum(), 1)
+            counted.sum(), 1).to(ma2.dtype)
 
     # -- edge length variation: O(E) elementwise, recomputed in full --------
     if "edge_length_variation" in m:

@@ -82,10 +82,8 @@ class EvalConfig:
     :data:`~repro_torch.core.engine.ALL_METRICS` order, numbers coerced
     to plain Python types) exactly as the reference does, so ``repr``
     and :meth:`digest` agree with it for equal configs.  Every backend
-    and precision the reference accepts is accepted here (the digest
-    needs them); :class:`repro_torch.api.Evaluator` serves ``"fused"``,
-    ``"eager"`` and ``"kernels"`` in float32 and raises
-    ``NotImplementedError`` for the rest.  The device is not a config
+    and precision the reference accepts is accepted here, and
+    :class:`repro_torch.api.Evaluator` serves them all.  The device is not a config
     field: it is an argument of the evaluator, so configs and digests
     are device-independent.
     """

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core import grid as gridlib
 from repro_torch.core.geometry import (TWO_PI, directed_angle,
-                                       directed_angle_safe)
+                                       directed_angle_safe, scalar_like)
 
 
 def _half_edges(pos, edges, edge_valid, V, angle_fn=directed_angle):
@@ -40,11 +40,21 @@ def _half_edges(pos, edges, edge_valid, V, angle_fn=directed_angle):
     return src, angle_fn(sx, sy, dx, dy)
 
 
+def ideal_gap(deg, dtype):
+    """``2 pi / max(deg, 1)``, the ideal angle per vertex, in float32 and
+    then in ``dtype``: the reference's quotient of an integer array by a
+    Python float is weakly typed and takes the angles' dtype where it
+    meets them."""
+    return (scalar_like(TWO_PI, deg.float())
+            / torch.clamp_min(deg, 1).float()).to(dtype)
+
+
 def _m_a(deg, phi_min, dim):
     counted = deg >= 1
-    ideal = TWO_PI / torch.clamp_min(deg, 1)
+    ideal = ideal_gap(deg, phi_min.dtype)
     dev = torch.where(counted, (ideal - phi_min) / ideal, 0.0)
-    n_counted = torch.clamp_min(counted.sum(), 1)
+    # the count in the deviations' dtype, as the reference converts it
+    n_counted = torch.clamp_min(counted.sum(), 1).to(dev.dtype)
     return 1.0 - dev.sum(dim=dim) / n_counted, counted
 
 
@@ -74,7 +84,7 @@ def minimum_angle(pos, edges, *, n_vertices=None, edge_valid=None):
     same = s[1:] == s[:-1]
     gaps = torch.where(same, a[1:] - a[:-1], math.inf)
     gap_min = inf.scatter_reduce(0, s[1:], gaps, "amin")
-    wrap = TWO_PI - (amax - amin)
+    wrap = scalar_like(TWO_PI, a) - (amax - amin)
     phi_min = torch.minimum(gap_min, wrap)[:V]
     return _m_a(deg[:V], phi_min, None)
 
@@ -138,7 +148,7 @@ def minimum_angle_batched(pos, edges, *, edge_valid=None,
         shift *= 2
     gap_min = torch.where(deg >= 2, m[:, torch.clamp(first, 0, L - 1)],
                           math.inf)
-    wrap = TWO_PI - (amax - amin)
+    wrap = scalar_like(TWO_PI, a) - (amax - amin)
     phi_min = torch.minimum(gap_min, wrap)
     m_a, counted = _m_a(deg, phi_min, 1)
     return m_a, counted.expand(B, V)

@@ -74,6 +74,9 @@ class ReadabilityScores(NamedTuple):
     error: Any = None
     flags: Any = None
 
+    def asdict(self) -> dict:
+        return dict(self._asdict())
+
     @property
     def ok(self) -> bool:
         """True when this slot evaluated (no quarantined error)."""

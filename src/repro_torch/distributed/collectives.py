@@ -3,6 +3,7 @@
 
 * :func:`psum` -- ``lax.psum`` as ``all_reduce`` (sum).  Counts are
   int64 here, int32 in the reference; the values are equal.
+* :func:`pmax` -- ``lax.pmax`` as ``all_reduce`` (max).
 * :func:`halo_exchange` -- ``lax.ppermute`` from the ring successor: each
   rank sends its slabs to rank - 1 and receives rank + 1's, as one batch
   of point-to-point operations.  Bumps ``CALL_COUNTS["halo_exchanges"]``
@@ -20,8 +21,10 @@ the rank's device either way.  On a one-rank mesh the permutations are
 the identity (gloo cannot send to itself), and a mesh without a process
 group has identity collectives throughout.
 
-``merge_decode_attention`` and ``sharded_embedding_lookup`` belong to
-the seed-template substrate and are not ported here.
+``merge_decode_attention`` is decode attention against a KV cache
+sharded on its sequence axis over the mesh (the LM serving path):
+local softmax statistics merged by all-reduces.
+``sharded_embedding_lookup`` waits for the recsys slice of the port.
 """
 
 from __future__ import annotations
@@ -54,6 +57,17 @@ def psum(mesh, t):
     if x is t:
         x = t.clone()      # all_reduce works in place: leave t alone
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.group)
+    return _back(x, t)
+
+
+def pmax(mesh, t):
+    """Elementwise maximum of ``t`` over the mesh's ranks."""
+    if mesh.group is None:
+        return t
+    x = _staged(mesh, t)
+    if x is t:
+        x = t.clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.group)
     return _back(x, t)
 
 
@@ -105,3 +119,44 @@ def all_gather(mesh, t):
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
     dist.all_gather(parts, x, group=mesh.group)
     return _back(torch.cat(parts), t)
+
+
+def merge_decode_attention(mesh, q, k_cache, v_cache, pos, *,
+                           seq_axis: str = "model"):
+    """Decode attention against a KV cache sharded on its sequence axis
+    over the mesh: ``q`` ``(B, H, dh)`` replicated, ``k_cache`` /
+    ``v_cache`` ``(B, S, H, dh)``, ``pos`` the last position attended.
+    Returns ``(B, H, dh)``, the same on every rank.
+
+    Each rank takes its contiguous ``S / n`` slice of the cache (the
+    reference's ``shard_map`` in-spec; a rank reads only its slice) and
+    forms local ``(m, l, o)``; then ``m* = max(m)``, ``l* = sum(l
+    e^(m - m*))``, ``o* = sum(o e^(m - m*)) / l*`` over the ranks (the
+    max and the sums as all-reduces).  The mesh is one axis,
+    ``seq_axis``."""
+    if mesh.axis_names != (seq_axis,):
+        raise ValueError(f"merge_decode_attention shards over one axis "
+                         f"{seq_axis!r}; the mesh has {mesh.axis_names}")
+    n = mesh.size
+    S = k_cache.shape[1]
+    if S % n:
+        raise ValueError(f"a cache of {S} positions does not split over "
+                         f"{n} ranks")
+    per = S // n
+    sl = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    k, v = k_cache[:, sl], v_cache[:, sl]
+    scale = torch.full((), q.shape[-1] ** -0.5, dtype=torch.float32,
+                       device=q.device)
+    t = mesh.rank * per + torch.arange(per, device=q.device)
+    s = torch.einsum("bhd,bthd->bht", q, k).float() * scale
+    s = torch.where((t <= pos)[None, None, :], s, -1e30)
+    m = s.amax(dim=-1)                                        # (B, H)
+    p = torch.exp(s - m[..., None])
+    l_ = p.sum(dim=-1)                                        # (B, H)
+    o = torch.einsum("bht,bthd->bhd", p.to(v.dtype), v)
+    m_star = pmax(mesh, m)
+    corr = torch.exp(m - m_star)
+    l_star = psum(mesh, l_ * corr)
+    o_star = psum(mesh, o * corr[..., None].to(o.dtype))
+    return o_star / torch.clamp_min(l_star, 1e-30)[..., None].to(o.dtype)
+

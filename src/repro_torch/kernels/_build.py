@@ -28,21 +28,36 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-# each source's C entry and its argument types (every pointer and the
-# stream as c_void_p); all entries return a cudaError_t as int
+# each C entry and its argument types (every pointer and the stream as
+# c_void_p); all entries return a cudaError_t as int.  An entry lives in
+# csrc/<name>.cu unless ENTRY_SOURCE names another source.
 _P = ctypes.c_void_p
+_STRIP_REVERSAL_ARGS = [_P] * 6 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int] + [_P] * 3
+_OCCLUSION_PAIRS_ARGS = [_P] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] + [
+    _P] * 2
 ENTRY_POINTS = {
-    "strip_reversal": ("strip_reversal_launch", [_P] * 6 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int] +
-        [_P] * 3),
-    "occlusion_pairs": ("occlusion_pairs_launch", [_P] * 3 + [
-        ctypes.c_int] * 3 + [ctypes.c_float] + [_P] * 2),
+    "strip_reversal": ("strip_reversal_launch", _STRIP_REVERSAL_ARGS),
+    "strip_reversal_bf16": ("strip_reversal_bf16_launch",
+                            _STRIP_REVERSAL_ARGS),
+    "occlusion_pairs": ("occlusion_pairs_launch", _OCCLUSION_PAIRS_ARGS),
+    "occlusion_pairs_bf16": ("occlusion_pairs_bf16_launch",
+                             _OCCLUSION_PAIRS_ARGS),
     "segment_crossing": ("segment_crossing_launch", [_P] * 7 + [
         ctypes.c_int] * 3 + [_P] * 2),
     "crossing_angle_sum": ("crossing_angle_sum_launch", [_P] * 8 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_float] + [_P] * 3),
 }
-SOURCES = tuple(ENTRY_POINTS)
+ENTRY_SOURCE = {"strip_reversal_bf16": "strip_reversal",
+                "occlusion_pairs_bf16": "occlusion_pairs"}
+
+
+def source_of(name: str) -> str:
+    """The source (``csrc/<source>.cu``) that holds C entry ``name``."""
+    return ENTRY_SOURCE.get(name, name)
+
+
+SOURCES = tuple(dict.fromkeys(source_of(name) for name in ENTRY_POINTS))
 
 _LIBS: dict = {}
 _ENTRIES: dict = {}
@@ -109,28 +124,26 @@ def build_all(names=SOURCES) -> dict:
     return report
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it first if
-    needed (once per process), with its C entry's types set."""
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>.cu``, building it first if
+    needed (once per process)."""
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(source)
         if lib is None:
-            build_all((name,))
-            lib = ctypes.CDLL(str(library_path(name)))
-            symbol, argtypes = ENTRY_POINTS[name]
-            fn = getattr(lib, symbol)
-            fn.restype = ctypes.c_int
-            fn.argtypes = argtypes
-            _ENTRIES[name] = fn
-            _LIBS[name] = lib
+            build_all((source,))
+            lib = ctypes.CDLL(str(library_path(source)))
+            _LIBS[source] = lib
         return lib
 
 
 def entry(name: str):
-    """The typed C entry of ``csrc/<name>.cu`` (see :data:`ENTRY_POINTS`),
-    loading the library on first use."""
+    """The C entry ``name`` (see :data:`ENTRY_POINTS`) with its argument
+    types set, loading its library on first use."""
     fn = _ENTRIES.get(name)
     if fn is None:
-        load(name)
-        fn = _ENTRIES[name]
+        symbol, argtypes = ENTRY_POINTS[name]
+        fn = getattr(load(source_of(name)), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _ENTRIES[name] = fn
     return fn

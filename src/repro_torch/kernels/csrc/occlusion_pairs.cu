@@ -39,7 +39,14 @@
 //   contract it into an FMA, which rounds once where the reference
 //   rounds each product, and flips pairs that sit exactly at the
 //   threshold.
+// * bfloat16 coordinates (the kernels backend at precision="bfloat16"):
+//   widened to float on load, which is exact, and the distance formed in
+//   float as for float32 input.  That is what the reference computes on
+//   this route: its wrapper casts the bfloat16 layout to float32 before
+//   the Pallas kernel (repro/kernels/ops.py, occlusion_count_op).  The
+//   input is then 5 bytes per vertex.
 // * A tile partial is at most 512^2 = 262,144: int32.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -51,6 +58,11 @@ namespace {
 constexpr int kTile = 512;
 constexpr int kThreads = 64;
 constexpr int kPerThread = kTile / kThreads;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
 __device__ __forceinline__ float dist2(float xi, float yi, float2 pj) {
   const float dx = xi - pj.x;
@@ -65,9 +77,10 @@ __device__ __forceinline__ int lt_mask(float a, float b) {
   return m;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-occlusion_pairs_kernel(const float* __restrict__ x,
-                       const float* __restrict__ y,
+occlusion_pairs_kernel(const T* __restrict__ x,
+                       const T* __restrict__ y,
                        const uint8_t* __restrict__ ok, int t0, int m,
                        float thresh, int32_t* __restrict__ partial) {
   __shared__ float2 s_xy[kTile];
@@ -87,7 +100,8 @@ occlusion_pairs_kernel(const float* __restrict__ x,
     const int g = bj * kTile + s;
     const bool o = ok[g] != 0;
     any_j |= o;
-    s_xy[s] = o ? make_float2(x[g], y[g]) : make_float2(nan, nan);
+    s_xy[s] = o ? make_float2(widen(x[g]), widen(y[g]))
+                : make_float2(nan, nan);
   }
   float xi[kPerThread], yi[kPerThread];
   bool any_i = false;
@@ -96,8 +110,8 @@ occlusion_pairs_kernel(const float* __restrict__ x,
     const int g = bi * kTile + tid + r * kThreads;
     const bool o = ok[g] != 0;
     any_i |= o;
-    xi[r] = o ? x[g] : nan;
-    yi[r] = o ? y[g] : nan;
+    xi[r] = o ? widen(x[g]) : nan;
+    yi[r] = o ? widen(y[g]) : nan;
   }
   const int has_i = __syncthreads_or(any_i);
   const int has_j = __syncthreads_or(any_j);  // also publishes s_xy
@@ -151,27 +165,43 @@ occlusion_pairs_kernel(const float* __restrict__ x,
   }
 }
 
-}  // namespace
-
-// Plain C entry.  n is a multiple of 512 (the wrapper pads); the pairs
-// counted are those with i in [row0, row1) and j > i, both ends multiples
-// of 512 ([0, n) for the whole matrix).  partial holds one int32 per tile
-// of the row range, row_tiles::count(n_t, t0, m) of them (n_t (n_t + 1) / 2
-// for the whole matrix), n_t = n / 512.  Launches on `stream` and returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a bad row range.
-extern "C" int occlusion_pairs_launch(const void* x, const void* y,
-                                      const void* ok, int n, int row0,
-                                      int row1, float thresh, void* partial,
-                                      void* stream) {
+template <typename T>
+int launch(const void* x, const void* y, const void* ok, int n, int row0,
+           int row1, float thresh, void* partial, void* stream) {
   int t0, m;
   if (n % kTile || !row_tiles::split(n, row0, row1, kTile, t0, m))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = row_tiles::count(n / kTile, t0, m);
   if (blocks == 0) return static_cast<int>(cudaSuccess);
-  occlusion_pairs_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(y),
+  occlusion_pairs_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y),
       static_cast<const uint8_t*>(ok), t0, m, thresh,
       static_cast<int32_t*>(partial));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entries, x and y float32 (occlusion_pairs_launch) or bfloat16
+// (occlusion_pairs_bf16_launch).  n is a multiple of 512 (the wrapper
+// pads); the pairs counted are those with i in [row0, row1) and j > i,
+// both ends multiples of 512 ([0, n) for the whole matrix).  partial
+// holds one int32 per tile of the row range, row_tiles::count(n_t, t0, m)
+// of them (n_t (n_t + 1) / 2 for the whole matrix), n_t = n / 512.
+// Launches on `stream` and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a bad row range.
+extern "C" int occlusion_pairs_launch(const void* x, const void* y,
+                                      const void* ok, int n, int row0,
+                                      int row1, float thresh, void* partial,
+                                      void* stream) {
+  return launch<float>(x, y, ok, n, row0, row1, thresh, partial, stream);
+}
+
+extern "C" int occlusion_pairs_bf16_launch(const void* x, const void* y,
+                                           const void* ok, int n, int row0,
+                                           int row1, float thresh,
+                                           void* partial, void* stream) {
+  return launch<__nv_bfloat16>(x, y, ok, n, row0, row1, thresh, partial,
+                               stream);
 }

@@ -53,11 +53,20 @@
 //   row's items split over several blocks, and a warp-uniform branch
 //   with a queue of crossings for the deviations.  Re-time them before
 //   relying on these choices.
+// * bfloat16 slabs (the engine at precision="bfloat16"): the ordinates
+//   and angles are widened to float on load, which is exact, so every
+//   compare decides as on the bfloat16 values.  The deviation rounds to
+//   bfloat16 after each operation, ideal and pi included, as the
+//   reference's bfloat16 ops do (XLA computes each in float and rounds
+//   to nearest even); the terms are summed in float as for float32
+//   slabs.  The caller rounds the row sums to bfloat16, the reference's
+//   per-row sum.
 // * Outputs: one int64 count and one f32 deviation per row.  Each lane
 //   sums in int32 / f32 within one item run; a fixed-order warp shuffle
 //   tree and per-warp, per-row double partials in shared memory, summed
 //   in warp order, give the row's values.  No atomics touch the sums, so
 //   the deviation is the same from run to run.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -140,19 +149,38 @@ __device__ __forceinline__ bool disjoint(int32_t vi, int32_t ui,
   return (vi != q.v) & (vi != q.u) & (ui != q.v) & (ui != q.u);
 }
 
-// |ideal - min(d, pi - d)| / ideal, d = |th_i - th_j|, by IEEE division
-__device__ __forceinline__ float deviation(float thi, float thj,
-                                           float ideal) {
-  const float d = fabsf(thi - thj);
-  const float a_c = fminf(d, kPi - d);
-  return fabsf(ideal - a_c) / ideal;
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
-template <bool kWithAngle>
+// x rounded to T (nearest even), as a float
+template <typename T>
+__device__ __forceinline__ float rnd(float x);
+template <>
+__device__ __forceinline__ float rnd<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// |ideal - min(d, pi - d)| / ideal, d = |th_i - th_j|, by IEEE division,
+// every operation rounded to T (ideal and pi are T values already)
+template <typename T>
+__device__ __forceinline__ float deviation(float thi, float thj, float ideal,
+                                           float pi) {
+  const float d = rnd<T>(fabsf(thi - thj));
+  const float a_c = fminf(d, rnd<T>(pi - d));
+  return rnd<T>(rnd<T>(fabsf(ideal - a_c)) / ideal);
+}
+
+template <typename T, bool kWithAngle>
 __global__ void __launch_bounds__(kThreads)
-strip_reversal_kernel(const float* __restrict__ yl,
-                      const float* __restrict__ yr,
-                      const float* __restrict__ th,
+strip_reversal_kernel(const T* __restrict__ yl,
+                      const T* __restrict__ yr,
+                      const T* __restrict__ th,
                       const int32_t* __restrict__ v,
                       const int32_t* __restrict__ u,
                       const uint8_t* __restrict__ ok, int rows, int cap,
@@ -168,6 +196,8 @@ strip_reversal_kernel(const float* __restrict__ yl,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int row0 = blockIdx.x * rows_per_block;
+  const float ideal_t = rnd<T>(ideal);
+  const float pi_t = rnd<T>(kPi);
   const int nr = min(rows_per_block, rows - row0);
   const bool windowed = cap > kWindow;
   const int n_slots = windowed ? 2 * kWindow : rows_per_block * stride;
@@ -197,8 +227,8 @@ strip_reversal_kernel(const float* __restrict__ yl,
       if (e < nr * stride && s < cap) {
         const size_t g = static_cast<size_t>(row0 + rr) * cap + s;
         okv[q] = ok[g] != 0;
-        rec[q] = Rec{yl[g], yr[g], v[g], u[g]};
-        thv[q] = th[g];
+        rec[q] = Rec{widen(yl[g]), widen(yr[g]), v[g], u[g]};
+        thv[q] = widen(th[g]);
       }
     }
 #pragma unroll
@@ -266,9 +296,9 @@ strip_reversal_kernel(const float* __restrict__ yl,
             const size_t g = base + off + s;
             if (s < len) {
               s_rec[w * kWindow + s] =
-                  Rec{ok[g] != 0 ? yl[g] : __int_as_float(0x7fc00000), yr[g],
-                      v[g], u[g]};
-              s_th[w * kWindow + s] = th[g];
+                  Rec{ok[g] != 0 ? widen(yl[g]) : __int_as_float(0x7fc00000),
+                      widen(yr[g]), v[g], u[g]};
+              s_th[w * kWindow + s] = widen(th[g]);
             } else {
               s_rec[w * kWindow + s] = nan_rec();
             }
@@ -330,7 +360,8 @@ strip_reversal_kernel(const float* __restrict__ yl,
                 if (rv[r] && disjoint(vi[r], ui[r], q)) {
                   ++count;
                   if (kWithAngle)
-                    dev += deviation(ti[i0 + 32 * r], tj[j0 + k], ideal);
+                    dev += deviation<T>(ti[i0 + 32 * r], tj[j0 + k],
+                                        ideal_t, pi_t);
                 }
             }
           };
@@ -390,20 +421,10 @@ strip_reversal_kernel(const float* __restrict__ yl,
   }
 }
 
-}  // namespace
-
-// Plain C entry.  Sweeps a (rows, cap) slab, any cap.  Rows of at most
-// 1024 slots are packed several to a block, as many as fit in 512 staged
-// slots (each row rounded up to 32) and at most kMaxRows; longer rows
-// take a block each.  cnt_out is (rows,) int64, dev_out (rows,) f32 (0
-// unless with_angle).  Launches on `stream` and returns
-// cudaGetLastError(), or cudaErrorInvalidValue for an empty slab.
-extern "C" int strip_reversal_launch(const void* yl, const void* yr,
-                                     const void* th, const void* v,
-                                     const void* u, const void* ok, int rows,
-                                     int cap, float ideal, int with_angle,
-                                     void* cnt_out, void* dev_out,
-                                     void* stream) {
+template <typename T>
+int launch(const void* yl, const void* yr, const void* th, const void* v,
+           const void* u, const void* ok, int rows, int cap, float ideal,
+           int with_angle, void* cnt_out, void* dev_out, void* stream) {
   if (rows < 1 || cap < 1) return static_cast<int>(cudaErrorInvalidValue);
   const bool windowed = cap > kWindow;
   const int stride = windowed ? kWindow : (cap + kJTile - 1) / kJTile * kJTile;
@@ -413,22 +434,52 @@ extern "C" int strip_reversal_launch(const void* yl, const void* yr,
   const size_t smem = (sizeof(Rec) + sizeof(float)) * n_slots;
   const int blocks = (rows + rows_per_block - 1) / rows_per_block;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* f_yl = static_cast<const float*>(yl);
-  const float* f_yr = static_cast<const float*>(yr);
-  const float* f_th = static_cast<const float*>(th);
+  const T* f_yl = static_cast<const T*>(yl);
+  const T* f_yr = static_cast<const T*>(yr);
+  const T* f_th = static_cast<const T*>(th);
   const int32_t* i_v = static_cast<const int32_t*>(v);
   const int32_t* i_u = static_cast<const int32_t*>(u);
   const uint8_t* b_ok = static_cast<const uint8_t*>(ok);
   long long* o_cnt = static_cast<long long*>(cnt_out);
   float* o_dev = static_cast<float*>(dev_out);
   if (with_angle) {
-    strip_reversal_kernel<true><<<blocks, kThreads, smem, s>>>(
+    strip_reversal_kernel<T, true><<<blocks, kThreads, smem, s>>>(
         f_yl, f_yr, f_th, i_v, i_u, b_ok, rows, cap, stride, rows_per_block,
         ideal, o_cnt, o_dev);
   } else {
-    strip_reversal_kernel<false><<<blocks, kThreads, smem, s>>>(
+    strip_reversal_kernel<T, false><<<blocks, kThreads, smem, s>>>(
         f_yl, f_yr, f_th, i_v, i_u, b_ok, rows, cap, stride, rows_per_block,
         ideal, o_cnt, o_dev);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entries.  Each sweeps a (rows, cap) slab, any cap: yl, yr and
+// th float32 (strip_reversal_launch) or bfloat16
+// (strip_reversal_bf16_launch), v and u int32, ok one byte per slot.
+// Rows of at most 1024 slots are packed several to a block, as many as
+// fit in 512 staged slots (each row rounded up to 32) and at most
+// kMaxRows; longer rows take a block each.  cnt_out is (rows,) int64,
+// dev_out (rows,) f32 (0 unless with_angle).  Launches on `stream` and
+// returns cudaGetLastError(), or cudaErrorInvalidValue for an empty slab.
+extern "C" int strip_reversal_launch(const void* yl, const void* yr,
+                                     const void* th, const void* v,
+                                     const void* u, const void* ok, int rows,
+                                     int cap, float ideal, int with_angle,
+                                     void* cnt_out, void* dev_out,
+                                     void* stream) {
+  return launch<float>(yl, yr, th, v, u, ok, rows, cap, ideal, with_angle,
+                       cnt_out, dev_out, stream);
+}
+
+extern "C" int strip_reversal_bf16_launch(const void* yl, const void* yr,
+                                          const void* th, const void* v,
+                                          const void* u, const void* ok,
+                                          int rows, int cap, float ideal,
+                                          int with_angle, void* cnt_out,
+                                          void* dev_out, void* stream) {
+  return launch<__nv_bfloat16>(yl, yr, th, v, u, ok, rows, cap, ideal,
+                               with_angle, cnt_out, dev_out, stream);
 }

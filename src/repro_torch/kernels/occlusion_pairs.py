@@ -48,7 +48,10 @@ def _threshold(radius, like):
 def occlusion_pairs_plain(x, y, valid, radius, rows=None):
     """Count pairs ``i < j`` with both valid and ``d2 < (2r)^2`` by blocked
     all-pairs PyTorch, ``i`` in the row range ``rows = (row0, row1)``
-    (default: every row).  Returns an int64 scalar tensor."""
+    (default: every row).  bfloat16 coordinates are widened to float32
+    first, as the reference's wrapper widens them.  Returns an int64
+    scalar tensor."""
+    x, y = x.float(), y.float()
     n = x.shape[0]
     row0, row1 = (0, n) if rows is None else rows
     thresh = _threshold(radius, x)
@@ -71,7 +74,10 @@ def _launch(x, y, valid, radius, row0, row1):
 
     n = x.shape[0]
     dev = x.device
-    for name, t, dtype in (("x", x, torch.float32), ("y", y, torch.float32),
+    fdt = x.dtype
+    if fdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x: want float32 or bfloat16, got {fdt}")
+    for name, t, dtype in (("x", x, fdt), ("y", y, fdt),
                            ("valid", valid, torch.bool)):
         if t.dtype != dtype:
             raise TypeError(f"{name}: want {dtype}, got {t.dtype}")
@@ -97,7 +103,8 @@ def _launch(x, y, valid, radius, row0, row1):
     partial = torch.empty(row_tile_count(n_tiles, row0 // TILE,
                                          (row1 - row0) // TILE),
                           dtype=torch.int32, device=dev)
-    fn = entry("occlusion_pairs")
+    fn = entry("occlusion_pairs_bf16" if fdt == torch.bfloat16
+               else "occlusion_pairs")
     thresh = float(_threshold(radius, torch.empty(0)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -125,15 +132,22 @@ def _route(x, y, valid, radius, rows, counter):
                          f"got {x.device}")
     out = _launch(x, y, valid, radius, *rows)
     if rows[0] < rows[1]:
-        counter.LAUNCHES += 1
+        if x.dtype == torch.bfloat16:
+            counter.LAUNCHES_BF16 += 1
+        else:
+            counter.LAUNCHES += 1
     return out
 
 
 def occlusion_pairs(x, y, valid, radius):
     """Exact occluded-pair count of ``(n,)`` coordinates and a bool
-    validity mask.  CUDA inputs (float32 / bool, contiguous, ``n`` a
-    multiple of :data:`TILE`) launch the kernel; CPU inputs run
-    :func:`occlusion_pairs_plain`.  Returns an int64 scalar tensor."""
+    validity mask.  CUDA inputs (coordinates both float32 or both
+    bfloat16, contiguous, ``n`` a multiple of :data:`TILE`) launch the
+    kernel, counted in ``LAUNCHES`` or, for the bfloat16 instantiation,
+    ``LAUNCHES_BF16``; CPU inputs run :func:`occlusion_pairs_plain`.
+    Either widens bfloat16 coordinates to float32 and forms the distance
+    in float32, as the reference's route does.  Returns an int64 scalar
+    tensor."""
     return _route(x, y, valid, radius, (0, x.shape[0]), occlusion_pairs)
 
 
@@ -146,4 +160,6 @@ def occlusion_pairs_rows(x, y, valid, radius, row0, row1):
 
 
 occlusion_pairs.LAUNCHES = 0
+occlusion_pairs.LAUNCHES_BF16 = 0
 occlusion_pairs_rows.LAUNCHES = 0
+occlusion_pairs_rows.LAUNCHES_BF16 = 0

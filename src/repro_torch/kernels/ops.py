@@ -26,8 +26,11 @@ def _pad1(a, n, fill):
 
 def occlusion_count_op(pos, radius, *, valid=None):
     """Exact N_c of a ``(V, 2)`` layout via the all-pairs occlusion kernel;
-    padded vertices (to a multiple of the kernel's tile) are invalid."""
-    pos = pos.to(torch.float32)
+    padded vertices (to a multiple of the kernel's tile) are invalid.  A
+    bfloat16 layout goes in as it is: the kernel widens it, as the
+    reference's wrapper casts it to float32."""
+    if pos.dtype != torch.bfloat16:
+        pos = pos.to(torch.float32)
     n = pos.shape[0]
     if valid is None:
         valid = torch.ones(n, dtype=torch.bool, device=pos.device)
@@ -41,8 +44,10 @@ def occlusion_count_op(pos, radius, *, valid=None):
 def strip_reversal_op(buckets, *, ideal: float = 1.0, with_angle=False):
     """Flat-bucket reversal sweep, summed over every strip: ``buckets`` is
     a :class:`repro_torch.core.grid.SegmentBuckets`.  The kernel takes
-    any ``cap``, so the buckets go in unpadded.  Returns ``(count,
-    deviation_sum)`` scalars."""
+    any ``cap``, so the buckets go in unpadded.  The buckets are swept in
+    float32 whatever their dtype, as the reference's wrapper casts them
+    (so a bfloat16 layout's deviations are float32 terms here).  Returns
+    ``(count, deviation_sum)`` scalars."""
     cnt, dev = strip_reversal_rows(
         buckets.yl.to(torch.float32).contiguous(),
         buckets.yr.to(torch.float32).contiguous(),

@@ -37,6 +37,8 @@ import math
 
 import torch
 
+from repro_torch.core.geometry import scalar_like
+
 # elements of the (rows, cap, cap) pair tiles one plain block may hold
 _PAIR_BUDGET = 1 << 26
 
@@ -49,6 +51,12 @@ def fused_reversal_block(yl, yr, theta, v, u, valid, *, ideal,
     reversals between the strip's boundary ordinates, shared endpoints
     excluded) and, on the same pair mask, ``sum |ideal - a_c| / ideal``.
     ``reduce='rows'`` returns per-row ``(B,)`` sums instead of scalars.
+
+    Every op rounds to the inputs' dtype, as the reference's does op by
+    op (``ideal`` and pi included); the deviation terms are summed in
+    float32 and returned in float32, the kernel's per-row partials.  The
+    reference's bfloat16 sum rounds that float32 sum to bfloat16, which
+    the engine does by casting the partials.
     """
     dims = (1, 2) if reduce == "rows" else None
     rev = (yl[:, :, None] < yl[:, None, :]) & (yr[:, :, None] > yr[:, None, :])
@@ -60,12 +68,13 @@ def fused_reversal_block(yl, yr, theta, v, u, valid, *, ideal,
     cnt = mask.sum(dim=dims)
     if not with_angle:
         shape = (yl.shape[0],) if reduce == "rows" else ()
-        return cnt, torch.zeros(shape, dtype=yl.dtype, device=yl.device)
-    ideal_t = torch.tensor(ideal, dtype=yl.dtype, device=yl.device)
+        return cnt, torch.zeros(shape, dtype=torch.float32, device=yl.device)
+    ideal_t = scalar_like(ideal, theta)
     d = torch.abs(theta[:, :, None] - theta[:, None, :])
-    a_c = torch.minimum(d, math.pi - d)
+    a_c = torch.minimum(d, scalar_like(math.pi, d) - d)
     dev = torch.abs(ideal_t - a_c) / ideal_t
-    return cnt, torch.where(mask, dev, 0.0).sum(dim=dims)
+    return cnt, torch.where(mask, dev, 0.0).sum(dim=dims,
+                                                dtype=torch.float32)
 
 
 def strip_reversal_rows_plain(yl, yr, theta, v, u, valid, *, ideal,
@@ -74,7 +83,7 @@ def strip_reversal_rows_plain(yl, yr, theta, v, u, valid, *, ideal,
     """The plain version of the kernel: :func:`fused_reversal_block` per
     row over a ``(rows, cap)`` slab, in row blocks that keep the pair
     tiles within a fixed element budget.  Returns ``((rows,) int64
-    count, (rows,) dev)``."""
+    count, (rows,) float32 dev)``."""
     rows, cap = yl.shape
     block = max(1, min(row_block, _PAIR_BUDGET // max(cap * cap, 1),
                        max(rows, 1)))
@@ -88,7 +97,7 @@ def strip_reversal_rows_plain(yl, yr, theta, v, u, valid, *, ideal,
         devs.append(d)
     if not counts:
         return (torch.zeros(0, dtype=torch.int64, device=yl.device),
-                torch.zeros(0, dtype=yl.dtype, device=yl.device))
+                torch.zeros(0, dtype=torch.float32, device=yl.device))
     return torch.cat(counts), torch.cat(devs)
 
 
@@ -109,9 +118,11 @@ def _launch(yl, yr, theta, v, u, valid, ideal, with_angle):
 
     rows, cap = yl.shape
     dev = yl.device
-    for name, t, dtype in (("yl", yl, torch.float32),
-                           ("yr", yr, torch.float32),
-                           ("theta", theta, torch.float32),
+    fdt = yl.dtype
+    if fdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"yl: want float32 or bfloat16, got {fdt}")
+    for name, t, dtype in (("yl", yl, fdt), ("yr", yr, fdt),
+                           ("theta", theta, fdt),
                            ("v", v, torch.int32), ("u", u, torch.int32),
                            ("valid", valid, torch.bool)):
         _check(name, t, dtype, (rows, cap), dev)
@@ -122,7 +133,8 @@ def _launch(yl, yr, theta, v, u, valid, ideal, with_angle):
         raise ValueError(f"too many rows for one launch: {rows}")
     cnt = torch.empty(rows, dtype=torch.int64, device=dev)
     dsum = torch.empty(rows, dtype=torch.float32, device=dev)
-    fn = entry("strip_reversal")
+    bf16 = fdt == torch.bfloat16
+    fn = entry("strip_reversal_bf16" if bf16 else "strip_reversal")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(yl.data_ptr(), yr.data_ptr(), theta.data_ptr(),
@@ -132,7 +144,10 @@ def _launch(yl, yr, theta, v, u, valid, ideal, with_angle):
     if err != 0:
         raise RuntimeError(f"strip_reversal kernel launch failed: "
                            f"cudaError {err}")
-    strip_reversal_rows.LAUNCHES += 1
+    if bf16:
+        strip_reversal_rows.LAUNCHES_BF16 += 1
+    else:
+        strip_reversal_rows.LAUNCHES += 1
     return cnt, dsum
 
 
@@ -142,9 +157,12 @@ def strip_reversal_rows(yl, yr, theta, v, u, valid, *, ideal,
     buckets (any ``cap``).
 
     A CUDA slab launches the hand-written kernel (``yl``/``yr``/``theta``
-    float32, ``v``/``u`` int32, ``valid`` bool, all contiguous); a CPU
-    slab runs :func:`strip_reversal_rows_plain`.  Returns ``((rows,)
-    int64, (rows,) float32)``."""
+    all float32 or all bfloat16, ``v``/``u`` int32, ``valid`` bool, all
+    contiguous); its launches count in ``LAUNCHES``, those of the
+    bfloat16 instantiation in ``LAUNCHES_BF16``.  A CPU slab runs
+    :func:`strip_reversal_rows_plain`.  Returns ``((rows,) int64,
+    (rows,) float32)``: a bfloat16 slab's deviation terms round op by op
+    to bfloat16 and are summed in float32."""
     if yl.device.type == "cpu":
         return strip_reversal_rows_plain(yl, yr, theta, v, u, valid,
                                          ideal=ideal, with_angle=with_angle,
@@ -156,3 +174,4 @@ def strip_reversal_rows(yl, yr, theta, v, u, valid, *, ideal,
 
 
 strip_reversal_rows.LAUNCHES = 0
+strip_reversal_rows.LAUNCHES_BF16 = 0

@@ -19,6 +19,9 @@ stays as a deprecation shim mapping onto ``EvalConfig``
 (``method="session"`` -> fused backend, ``"enhanced"`` -> eager backend,
 ``"exact"`` -> the all-pairs reference path).
 
+:func:`lm_generate` is the LM family's serving loop (prefill, then
+greedy decode).
+
 The server runs on CUDA unless ``device="cpu"`` is passed::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 8
@@ -169,6 +172,26 @@ class ReadabilityServer:
                 for pos, edges in requests]
         self._stats["evals"] += len(requests)
         return reports
+
+
+def lm_generate(model, prompt_tokens, n_new: int):
+    """Prefill, then a greedy decode loop: the ``n_new`` tokens that
+    :class:`~repro_torch.models.transformer.Transformer` ``model`` emits
+    after ``prompt_tokens`` ``(B, S)``, as ``(B, n_new)`` int32 (the
+    reference's ``lm_generate``; the module carries the config the
+    reference passes beside its parameters)."""
+    import torch
+
+    tokens = torch.as_tensor(prompt_tokens, device=model.device)
+    B, S = tokens.shape
+    cache = model.init_cache(B, S + n_new)
+    cache, logits = model.prefill(tokens, cache)
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    out = [nxt]
+    for _ in range(n_new - 1):
+        nxt, _, cache = model.decode_step(nxt, cache)
+        out.append(nxt)
+    return torch.stack(out, dim=1)
 
 
 def main(argv=None):

@@ -220,9 +220,6 @@ class EvalSession:
                 "'kernels' or 'graph_sharded', got "
                 f"{self.config.backend!r} (use repro_torch.api.Evaluator "
                 "for the other backends)")
-        if self.config.precision != "float32":
-            raise NotImplementedError(
-                f"precision={self.config.precision!r} is not ported yet")
         if self.config.backend == "graph_sharded" and mesh is None:
             # graph_sharded needs a mesh (it is what the backend means):
             # the serving policy brings one up, capped by config.shards

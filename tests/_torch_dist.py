@@ -548,3 +548,34 @@ def search_twin(mesh):
             "counters": res.counters,
             "losses": [t["mean_soft_loss"] for t in res.trajectory]}
     return out
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: decode attention against a sequence-sharded cache
+# ---------------------------------------------------------------------------
+
+MERGE_SHAPE = dict(B=2, S=24, H=3, dh=8)
+MERGE_POS = 17
+
+
+def merge_inputs():
+    """``(q (B, H, dh), k, v (B, S, H, dh))`` float32 from seed 21."""
+    rng = np.random.default_rng(21)
+    B, S, H, dh = (MERGE_SHAPE[k] for k in ("B", "S", "H", "dh"))
+    q = rng.standard_normal((B, H, dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, H, dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, H, dh)).astype(np.float32)
+    return q, k, v
+
+
+def merge_decode(world):
+    """``merge_decode_attention`` over a ``world``-rank ``model`` axis on
+    :func:`merge_inputs`, attending up to :data:`MERGE_POS`."""
+    import torch
+
+    from repro_torch.distributed.collectives import merge_decode_attention
+    from repro_torch.distributed.compat import make_mesh
+
+    mesh = make_mesh((world,), ("model",), device=DEVICE)
+    q, k, v = (torch.from_numpy(a) for a in merge_inputs())
+    return merge_decode_attention(mesh, q, k, v, MERGE_POS).tolist()

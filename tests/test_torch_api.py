@@ -202,14 +202,6 @@ def test_device_rule(monkeypatch):
     assert repr(ev).startswith("Evaluator(EvalConfig(")
 
 
-@pytest.mark.parametrize("kw", [dict(precision="bfloat16")])
-def test_unported_options_raise(kw):
-    cfg = t_api.EvalConfig(**kw)
-    assert cfg.digest() == ref_api.EvalConfig(**kw).digest()
-    with pytest.raises(NotImplementedError):
-        t_api.Evaluator(cfg, device="cpu")
-
-
 def test_distributed_backend_matches_fused(graph):
     """Twin of ``tests/test_api.py``'s: the distributed front door (here on
     a one-rank mesh: exact row-sharded N_c, strip-sharded E_c / E_ca)

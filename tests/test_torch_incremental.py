@@ -459,13 +459,20 @@ def test_host_helpers_match_reference(ref):
         ref.incremental.owner_cells([0, 7, 12, 35], 6, 6))
 
 
-def op_by_op():
-    """The reference's module functions run op by op: its jitted prime
-    contracts the strip ordinates into FMAs, which flips ties of the
-    duplicate family (axis-0 partials summing to 7719, against 7691 op by
-    op and in the port)."""
+def op_by_op(kind="duplicate"):
+    """The reference's module functions run op by op on the ``duplicate``
+    family: its jitted prime contracts the strip ordinates into FMAs,
+    which flips ties there (axis-0 partials summing to 7719, against
+    7691 op by op and in the port).  The other families run jitted: the
+    ``random`` family has no exact ties, and the ``grid`` family's
+    lattice products are exact with or without contraction, so the
+    jitted values are the op-by-op ones (an op-by-op run compiles every
+    primitive of the path, tens of seconds)."""
+    import contextlib
+
     import jax
-    return jax.disable_jit()
+    return jax.disable_jit() if kind == "duplicate" \
+        else contextlib.nullcontext()
 
 
 def primed(ref, kind):
@@ -482,7 +489,7 @@ def primed(ref, kind):
                 radius=RADIUS, n_strips=N_STRIPS).plan_kwargs(
                     tier_default=False))
         plan_r = dataclasses.replace(plan, resident=("delta", deg_cap))
-        with op_by_op():
+        with op_by_op(kind):
             state, aux = r.incremental.prime_state(
                 plan_r, pos_p, edges_p, n_v, n_e, inc_nbr, inc_deg)
         return plan_r, state, aux
@@ -570,7 +577,7 @@ def captured_delta(ref, monkeypatch):
     assert plan == p["tplan"]
 
     def ref_delta(r):
-        with op_by_op():
+        with op_by_op("random"):
             rprobe = r.incremental.delta_probe(p["plan_r"], p["rstate"],
                                                p["edges_p"], n_e, *ids[:3])
             res, new_state = r.incremental.evaluate_delta(
@@ -637,7 +644,7 @@ def test_lost_mover_overflows_and_falls_back(ref, monkeypatch):
     args = (moved, new_xy, aff, dc_lost, own, ds, dv)
     got, _ = t_inc.evaluate_delta(d["tplan"], d["tstate"], d["edges_p"],
                                   len(d["edges"]), *args, device="cpu")
-    with op_by_op():
+    with op_by_op("random"):
         want, _ = ref.incremental.evaluate_delta(
             d["plan_r"], d["rstate"], d["edges_p"], len(d["edges"]), *args)
     assert int(got.overflow) == int(want.overflow) > 0

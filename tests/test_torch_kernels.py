@@ -175,18 +175,19 @@ def test_occlusion_wrapper_takes_plain_route_on_cpu_only():
 @pytest.mark.parametrize("name", sorted(t_build.ENTRY_POINTS))
 def test_entry_point_types_match_the_c_source(name):
     """The ctypes argument types set at load time follow the ``extern "C"``
-    declaration in ``csrc/<name>.cu`` (pointers and the stream as
+    declaration in the entry's source (pointers and the stream as
     ``c_void_p``)."""
     symbol, argtypes = t_build.ENTRY_POINTS[name]
-    src = (t_build.CSRC / f"{name}.cu").read_text()
+    source = t_build.source_of(name)
+    src = (t_build.CSRC / f"{source}.cu").read_text()
     decl = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", src)
-    assert decl is not None, f"{symbol} not declared in {name}.cu"
+    assert decl is not None, f"{symbol} not declared in {source}.cu"
     kinds = {"ptr": ctypes.c_void_p, "int": ctypes.c_int,
              "float": ctypes.c_float}
     params = [" ".join(p.split()) for p in decl.group(1).split(",")]
     want = [kinds["ptr" if "*" in p else p.split()[0]] for p in params]
     assert argtypes == want
-    assert name in t_build.SOURCES
+    assert source in t_build.SOURCES
 
 
 def edge_arrays(layout, device="cpu"):
@@ -394,6 +395,51 @@ def test_occlusion_kernel_matches_plain_on_tile_cases(cuda, name):
     got = t_occ.occlusion_pairs(*args, 0.5)
     torch.cuda.synchronize()
     assert t_occ.occlusion_pairs.LAUNCHES == before + 1
+    assert int(got) == int(t_occ.occlusion_pairs_plain(*args, 0.5)) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SLAB_NAMES)
+@pytest.mark.parametrize("with_angle", [True, False])
+def test_reversal_bf16_kernel_matches_plain_on_card(cuda, name, with_angle):
+    """The bfloat16 instantiation on the fixture slabs with their
+    ordinates and angles rounded to bfloat16: counts equal to the plain
+    version's, float32 deviation partials (bfloat16 terms) at ``RTOL``,
+    one launch counted as bfloat16."""
+    yl, yr, th, v, u, ok = _torch(strip_slab(**ALL_SLABS[name]), cuda)
+    args = [t.to(torch.bfloat16) for t in (yl, yr, th)] + [v, u, ok]
+    before = (t_rev.strip_reversal_rows.LAUNCHES,
+              t_rev.strip_reversal_rows.LAUNCHES_BF16)
+    cnt, dev = t_rev.strip_reversal_rows(*args, ideal=DEFAULT_IDEAL,
+                                         with_angle=with_angle)
+    torch.cuda.synchronize()
+    assert (t_rev.strip_reversal_rows.LAUNCHES,
+            t_rev.strip_reversal_rows.LAUNCHES_BF16) == (before[0],
+                                                         before[1] + 1)
+    pc, pd = t_rev.strip_reversal_rows_plain(*args, ideal=DEFAULT_IDEAL,
+                                             with_angle=with_angle)
+    assert dev.dtype == pd.dtype == torch.float32
+    assert torch.equal(cnt.cpu(), pc.cpu())
+    np.testing.assert_allclose(dev.cpu().numpy(), pd.cpu().numpy(),
+                               rtol=RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", OCCLUSION_CASES)
+def test_occlusion_bf16_kernel_matches_plain_on_tile_cases(cuda, name):
+    """The bfloat16 instantiation on the tile cases rounded to bfloat16:
+    the count of the plain version (which widens to float32, as the
+    reference's route does), one launch counted as bfloat16."""
+    pos, ok = occlusion_case(name, 0.5)
+    args = [t.to(torch.bfloat16) for t in _torch(
+        [pos[:, 0].copy(), pos[:, 1].copy()], cuda)] + _torch([ok], cuda)
+    before = (t_occ.occlusion_pairs.LAUNCHES,
+              t_occ.occlusion_pairs.LAUNCHES_BF16)
+    got = t_occ.occlusion_pairs(*args, 0.5)
+    torch.cuda.synchronize()
+    assert (t_occ.occlusion_pairs.LAUNCHES,
+            t_occ.occlusion_pairs.LAUNCHES_BF16) == (before[0],
+                                                     before[1] + 1)
     assert int(got) == int(t_occ.occlusion_pairs_plain(*args, 0.5)) > 0
 
 

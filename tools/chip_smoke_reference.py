@@ -31,6 +31,8 @@ Usage (from the repository root)::
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --drag
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --search
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --near-parallel
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --bf16
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --lm
 
 ``--drag`` computes the constants of ``chip_smoke.py``'s phase (f), op by
 op: the reference's ``EvalSession(EvalConfig(radius=0.5, n_strips=512),
@@ -77,6 +79,21 @@ gradient with the port in float64 on the CPU and prints how far the
 reference's float32 values are from the recount; ``chip_smoke.py``'s
 tolerances rest on that (``SEARCH_REFERENCE["float64"]``).  About 10
 minutes of CPU and 10 GB.
+
+``--bf16`` computes the constants of ``chip_smoke.py``'s phase (i), op
+by op: the inputs above at ``EvalConfig(radius=0.5, n_strips=512,
+precision="bfloat16")``: fused ``evaluate``, ``evaluate_batch`` of the
+B=8 batch, ``backend="kernels"`` ``evaluate``, and the reference's
+``ReadabilityServer`` on the batch as eight requests.  About 6 minutes
+of CPU and 4 GB.
+
+``--lm`` computes the constants of phase (j1): for each of the five LM
+smoke configs at ``dtype=float32``, parameters from
+``repro_torch.models.transformer.numpy_params(cfg, LM_SEED)`` (the port's
+numpy draw, handed to the reference as its pytree) and a ``(2, 16)``
+prompt from ``numpy.random.default_rng(LM_SEED + 1)``: the reference's
+``lm_generate`` tokens (8 new), the first 8 prefill logits of each row
+and each row's L2 norm of the prefill logits.  About half a minute.
 
 ``--near-parallel`` runs the reference's engine on
 ``repro_torch.kernels.fixtures.near_parallel_layouts()`` (``RADIUS`` 2.0,
@@ -158,6 +175,68 @@ def compute():
                 exact_node_occlusion=exact_nc,
                 seconds=dict(fused=t1 - t0, batch=t2 - t1, kernels=t3 - t2,
                              exact=t4 - t3))
+
+
+def compute_bf16():
+    """Phase (i): the main path at precision="bfloat16", op by op (call
+    under ``jax.disable_jit()``)."""
+    pos, edges, batch = inputs()
+    cfg = EvalConfig(radius=RADIUS, n_strips=N_STRIPS, precision="bfloat16")
+    t0 = time.perf_counter()
+    single = _row(Evaluator(cfg).evaluate(pos, edges))
+    t1 = time.perf_counter()
+    res = Evaluator(cfg).evaluate_batch(batch, edges)
+    batched = [_row(res, i) for i in range(BATCH)]
+    t2 = time.perf_counter()
+    kcfg = EvalConfig(radius=RADIUS, n_strips=N_STRIPS,
+                      precision="bfloat16", backend="kernels")
+    kern = _row(Evaluator(kcfg).evaluate(pos, edges))
+    t3 = time.perf_counter()
+    server = ReadabilityServer(cfg)
+    serve = [_row(r) for r in server.evaluate_batch(
+        [(p, edges) for p in batch])]
+    t4 = time.perf_counter()
+    return dict(fused=single, batch=batched, kernels=kern, serve=serve,
+                seconds=dict(fused=t1 - t0, batch=t2 - t1, kernels=t3 - t2,
+                             serve=t4 - t3))
+
+
+LM_SEED, LM_BATCH, LM_PROMPT, LM_NEW = 0, 2, 16, 8
+
+
+def compute_lm():
+    """Phase (j1): the five LM smoke configs at float32."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    import torch
+
+    from repro import configs as ref_configs
+    from repro.launch.serve import lm_generate
+    from repro.models import transformer as ref_tf
+    from repro_torch import configs as t_configs
+    from repro_torch.models.transformer import numpy_params
+
+    out = {}
+    for arch in t_configs.ARCH_IDS[:5]:
+        tcfg = dataclasses.replace(t_configs.get_arch(arch).smoke_config,
+                                   dtype=torch.float32)
+        rcfg = dataclasses.replace(ref_configs.get_arch(arch).smoke_config,
+                                   dtype=jnp.float32)
+        params = jax.tree.map(jnp.asarray, numpy_params(tcfg, LM_SEED))
+        rng = np.random.default_rng(LM_SEED + 1)
+        prompt = rng.integers(0, rcfg.vocab_size,
+                              (LM_BATCH, LM_PROMPT)).astype(np.int32)
+        cache = ref_tf.init_cache(rcfg, LM_BATCH, LM_PROMPT)
+        _, logits = jax.jit(lambda p, t, c: ref_tf.prefill(p, t, c, rcfg))(
+            params, prompt, cache)
+        logits = np.asarray(logits)
+        tokens = np.asarray(lm_generate(params, rcfg, prompt, LM_NEW))
+        out[arch] = dict(tokens=tokens.tolist(),
+                         prefill_logits_head=logits[:, :8].tolist(),
+                         prefill_logits_norm=np.linalg.norm(
+                             logits.astype(np.float64), axis=1).tolist())
+    return out
 
 
 def _smoke():
@@ -446,11 +525,20 @@ def main():
     ap.add_argument("--search", action="store_true",
                     help="phase (g2): the first soft loss and gradient of "
                          "the search at |V| = 100,000")
+    ap.add_argument("--bf16", action="store_true",
+                    help="phase (i): the main path at precision='bfloat16'")
+    ap.add_argument("--lm", action="store_true",
+                    help="phase (j1): the five LM smoke configs")
     ap.add_argument("--near-parallel", action="store_true",
                     help="the reference's jitted and op-by-op E_ca on the "
                          "near-parallel layouts")
     args = ap.parse_args()
-    if args.search:
+    if args.bf16:
+        with jax.disable_jit():
+            out = {"eager": compute_bf16()}
+    elif args.lm:
+        out = compute_lm()
+    elif args.search:
         out = {"eager": compute_search()}
     elif args.near_parallel:
         out = compute_near_parallel()
