@@ -128,6 +128,27 @@ Phases (any failed check raises):
    per-token decode times and peak memory; (j3)
    ``merge_decode_attention`` on a one-rank NCCL group against float32
    unsharded attention over (j2)'s layer-0 cache.
+   (k) LM training (``repro_torch.launch.train``), float32 products with
+   TF32 off where it says float32: (k1) the five LM smoke configs at
+   ``dtype=float32`` from ``numpy_params(cfg, TRAIN_SEED)``, three
+   ``build_lm_trainer`` steps on ``TokenStream`` batches (the second with
+   ``grad_accum=2``), loss and grad norm per step against
+   ``TRAIN_REFERENCE["smoke"]`` at ``TRAIN_RTOL``; then
+   ``launch.train.main`` on qwen3-4b ``--smoke``: 4 steps straight, and 2
+   steps with a checkpoint, a fresh ``main`` that resumes from it and 2
+   more, every loss against the straight run's at
+   ``TRAIN_RESUME_RTOL``; (k2a) qwen3-4b at its published width with 2
+   layers at float32: ``loss_fn``'s total and
+   xent and the gradient's global norm against
+   ``TRAIN_REFERENCE["full_2l"]``; (k2) qwen3-4b at its published width
+   and ``FULL_TRAIN_LAYERS`` layers, bfloat16 products on float32
+   parameters and AdamW state, remat on, the loss in 16 chunks, a
+   sequence of 4096 (train_4k) and a global batch cut from 256 to
+   ``FULL_TRAIN_ACCUM`` micro-batches of one: ``FULL_TRAIN_STEPS`` steps
+   on one batch, the last with int8-compressed gradients; losses finite
+   and falling, the step time (CUDA events), tokens per second, MFU
+   against the H100 SXM's dense bfloat16 peak, and peak memory beside
+   the 16 bytes per parameter of its state.
 4. **Timings**: median of 5 CUDA-event-timed runs after a warm-up, for
    (a)-(e3) and (e5); for (f), over 2 replays of the drag on fresh
    sessions, the median and p95 of a frame's ``update`` (host clock; the
@@ -163,6 +184,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -722,6 +744,69 @@ LM_BF16_REL_L2 = 0.05
 # (j3): bfloat16 scores and probabilities against float32 attention
 LM_MERGE_ATOL = 0.05
 
+# (k1): three trainer steps of each LM smoke config at float32 on
+# TokenStream(vocab, TRAIN_SEQ, TRAIN_BATCH, seed=TRAIN_SEED) batches, the
+# step i with grad_accum TRAIN_ACCUM[i], AdamWConfig(**TRAIN_OPT); then
+# launch.train.main with TRAIN_MAIN_ARGS, 4 steps against 2 + resume + 2.
+TRAIN_SEED, TRAIN_BATCH, TRAIN_SEQ = 0, 4, 32
+TRAIN_ACCUM = (1, 2, 1)
+TRAIN_OPT = dict(peak_lr=3e-3, warmup_steps=2, total_steps=3)
+TRAIN_MAIN_ARGS = ["--arch", "qwen3-4b", "--smoke", "--batch", "4",
+                   "--seq", "32", "--lr", "1e-3", "--seed", "0"]
+# float32 products on the card (TF32 off) summed in another order than
+# the reference's on the CPU.  Two runs of main on the card may differ in
+# the embedding's backward (index_put_ with accumulate sorts the token ids
+# without a stable order unless deterministic algorithms are on, so the
+# adds of a repeated id may come in another order), so the losses of two
+# runs are held at TRAIN_RESUME_RTOL, not bit for bit
+TRAIN_RTOL, TRAIN_RESUME_RTOL = 1e-4, 1e-5
+# (k2a): one TokenStream batch of FULL_2L_BATCH x FULL_2L_SEQ
+FULL_2L_BATCH, FULL_2L_SEQ = 2, 128
+# JAX reference constants of (k1) and (k2a), made on the CPU with
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --train
+# (the reference's jitted build_lm_trainer and loss_fn on the same numpy
+# parameters and TokenStream batches)
+TRAIN_REFERENCE = {'smoke': {'codeqwen1.5-7b': {'loss': [5.423582077026367,
+                                       5.298740386962891,
+                                       5.102720260620117],
+                              'grad_norm': [10.427703857421875,
+                                            12.085379600524902,
+                                            9.18924331665039]},
+           'internlm2-20b': {'loss': [5.389583110809326,
+                                      5.261530876159668,
+                                      5.0801262855529785],
+                             'grad_norm': [9.725687980651855,
+                                           8.911918640136719,
+                                           11.265782356262207]},
+           'qwen3-4b': {'loss': [5.372411727905273,
+                                 5.158551216125488,
+                                 5.101534843444824],
+                        'grad_norm': [10.029040336608887,
+                                      11.05087947845459,
+                                      9.245591163635254]},
+           'qwen2-moe-a2.7b': {'loss': [5.338861465454102,
+                                        5.291921615600586,
+                                        5.0810418128967285],
+                               'grad_norm': [9.898399353027344,
+                                             11.975287437438965,
+                                             8.249823570251465]},
+           'llama4-scout-17b-a16e': {'loss': [5.298683166503906,
+                                              5.2311601638793945,
+                                              5.1954145431518555],
+                                     'grad_norm': [12.143720626831055,
+                                                   10.167556762695312,
+                                                   9.73021125793457]}},
+ 'full_2l': {'loss': 12.472524642944336,
+             'xent': 12.472524642944336,
+             'tokens': 254.0,
+             'grad_norm': 16.466293334960938}}
+# (k2): qwen3-4b at full width, train_4k's sequence, the global batch of
+# 256 cut to FULL_TRAIN_ACCUM micro-batches of 1; FULL_TRAIN_STEPS steps on
+# one batch at peak lr FULL_TRAIN_LR (warmup 1), the last one compressed
+FULL_TRAIN_LAYERS, FULL_TRAIN_SEQ = 36, 4096
+FULL_TRAIN_ACCUM, FULL_TRAIN_STEPS, FULL_TRAIN_LR = 4, 4, 1e-4
+# H100 SXM dense bfloat16 tensor-core peak (NVIDIA data sheet), FLOP/s
+BF16_PEAK_FLOPS = 989.4e12
 INT_FIELDS = ("node_occlusion", "edge_crossing", "crossing_count_for_angle",
               "overflow")
 FLOAT_FIELDS = ("minimum_angle", "edge_length_variation",
@@ -2740,6 +2825,214 @@ def lm_full_phase(dev, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# (k) LM training
+# ---------------------------------------------------------------------------
+
+def lm_train_smoke_phase(dev):
+    """(k1): three trainer steps of each LM smoke config at float32
+    against :data:`TRAIN_REFERENCE`, then ``launch.train.main``'s resume
+    on qwen3-4b ``--smoke``."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import (Transformer, numpy_params,
+                                                params_from_reference)
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt_cfg = adamw.AdamWConfig(**TRAIN_OPT)
+    for arch in configs.ARCH_IDS[:5]:
+        cfg = dataclasses.replace(configs.get_arch(arch).smoke_config,
+                                  dtype=torch.float32).with_mesh(1)
+        model = Transformer(cfg, device=dev)
+        model.load_state_dict(params_from_reference(
+            numpy_params(cfg, TRAIN_SEED)))
+        opt_state = adamw.init_state(model.param_tree())
+        steps = {a: train.build_lm_trainer(model, opt_cfg, grad_accum=a)
+                 for a in set(TRAIN_ACCUM)}
+        stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                             seed=TRAIN_SEED)
+        got = {"loss": [], "grad_norm": []}
+        for a in TRAIN_ACCUM:
+            m = steps[a](opt_state, stream.next_batch())
+            for k in got:
+                got[k].append(float(m[k]))
+        want = TRAIN_REFERENCE["smoke"][arch]
+        err = max(abs(g / w - 1) for k in got
+                  for g, w in zip(got[k], want[k]))
+        check(all(np.allclose(got[k], want[k], rtol=TRAIN_RTOL, atol=0)
+                  for k in got),
+              f"(k1) {arch}: {got}, reference {want}")
+        print(f"(k1) {arch}: {len(TRAIN_ACCUM)} steps (grad_accum "
+              f"{TRAIN_ACCUM}), loss {got['loss']}, grad norm "
+              f"{got['grad_norm']}: within rtol {TRAIN_RTOL} of the "
+              f"reference's trainer (max rel err {err!r})", flush=True)
+        del model, opt_state, steps
+
+    with tempfile.TemporaryDirectory() as d:
+        args = TRAIN_MAIN_ARGS + ["--device", str(dev)]
+        straight = train.main(args + ["--steps", "4"])
+        ck = ["--checkpoint-dir", d, "--checkpoint-every", "2"]
+        first = train.main(args + ["--steps", "2"] + ck)
+        resumed = train.main(args + ["--steps", "4"] + ck)
+    check(len(first) == len(resumed) == 2
+          and all(math.isfinite(x) for x in straight)
+          and all(math.isclose(x, y, rel_tol=TRAIN_RESUME_RTOL)
+                  for x, y in zip(first + resumed, straight)),
+          f"(k1) main: straight {straight}, 2 steps {first}, resumed "
+          f"{resumed}")
+    print(f"(k1) launch.train.main qwen3-4b --smoke: 4 steps {straight}; 2 "
+          f"steps, checkpoint, resume, 2 steps {first} + {resumed} (every "
+          f"loss within rtol {TRAIN_RESUME_RTOL})", flush=True)
+
+
+def lm_train_full_2l_phase(dev):
+    """(k2a): qwen3-4b at its published width with 2 layers at float32:
+    the loss, xent and gradient norm against
+    :data:`TRAIN_REFERENCE`'s ``full_2l``."""
+    import math
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models.transformer import (Transformer, loss_fn,
+                                                numpy_params,
+                                                params_from_reference)
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_arch("qwen3-4b").config,
+                              n_layers=2, dtype=torch.float32)
+    model = Transformer(cfg, device=dev)
+    model.load_state_dict(params_from_reference(
+        numpy_params(cfg, TRAIN_SEED)))
+    batch = TokenStream(cfg.vocab_size, FULL_2L_SEQ, FULL_2L_BATCH,
+                        seed=TRAIN_SEED).next_batch()
+    total, mets = loss_fn(model, {k: torch.from_numpy(v).to(dev)
+                                  for k, v in batch.items()})
+    total.backward()
+    norm = adamw.global_norm(adamw._map(lambda p: p.grad,
+                                        model.param_tree()))
+    got = dict(loss=float(total.detach()),
+               xent=float(mets["xent"].detach()),
+               tokens=float(mets["tokens"]), grad_norm=float(norm))
+    want = TRAIN_REFERENCE["full_2l"]
+    check(got["tokens"] == want["tokens"]
+          and all(math.isclose(got[k], want[k], rel_tol=TRAIN_RTOL)
+                  for k in ("loss", "xent", "grad_norm")),
+          f"(k2a) {got}, reference {want}")
+    print(f"(k2a) {cfg.name} at d {cfg.d_model}, vocab {cfg.vocab_size}, 2 "
+          f"layers, float32 ({cfg.param_count() / 1e9:.3f} B parameters), "
+          f"{FULL_2L_BATCH} x {FULL_2L_SEQ} tokens: loss {got['loss']!r}, "
+          f"xent {got['xent']!r}, gradient norm {got['grad_norm']!r}; "
+          f"reference {want['loss']!r}, {want['xent']!r}, "
+          f"{want['grad_norm']!r} (rtol {TRAIN_RTOL}); "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    del model, total, mets
+    torch.cuda.empty_cache()
+
+
+def full_train_setup(dev):
+    """(k2)'s model (parameters from a CUDA generator), AdamW state,
+    gradients (zeros), batch on the device, and its two trainers (plain
+    and int8-compressed)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.launch.train import build_lm_trainer
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(configs.get_arch("qwen3-4b").config,
+                              n_layers=FULL_TRAIN_LAYERS, loss_chunks=16,
+                              remat=True)
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    model = Transformer(cfg, device=dev).init_params(gen)
+    opt_state = adamw.init_state(model.param_tree())
+    for p in model.parameters():
+        p.grad = torch.zeros_like(p)
+    batch = TokenStream(cfg.vocab_size, FULL_TRAIN_SEQ, FULL_TRAIN_ACCUM,
+                        seed=TRAIN_SEED).next_batch()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    opt_cfg = adamw.AdamWConfig(peak_lr=FULL_TRAIN_LR, warmup_steps=1,
+                                total_steps=FULL_TRAIN_STEPS)
+    trainers = {c: build_lm_trainer(model, opt_cfg,
+                                    grad_accum=FULL_TRAIN_ACCUM, compress=c)
+                for c in (False, True)}
+    return cfg, model, opt_state, batch, trainers
+
+
+def lm_train_full_phase(dev, card):
+    """(k2): qwen3-4b at full width and :data:`FULL_TRAIN_LAYERS` layers,
+    bfloat16 products, float32 parameters and AdamW state, remat, the
+    loss in 16 chunks: :data:`FULL_TRAIN_STEPS` steps on one batch of
+    ``FULL_TRAIN_ACCUM`` x ``FULL_TRAIN_SEQ`` tokens, the last with int8
+    gradient compression.  Prints losses, step time, tokens per second,
+    MFU and peak memory."""
+    import math
+
+    import torch
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, opt_state, batch, trainers = full_train_setup(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count() + 2 * cfg.n_layers * cfg.d_model
+          + cfg.n_layers * 2 * cfg.d_head + cfg.d_model,
+          f"(k2) {n_params} parameters")
+    state_gib = 16 * cfg.param_count() / 2 ** 30
+    torch.cuda.synchronize()
+    print(f"(k2) {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {cfg.param_count():,} parameters; float32 "
+          f"parameters, gradients and AdamW m, v: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated "
+          f"(reckoned {state_gib:.2f} GiB; {held / 2 ** 30:.3f} GiB held by "
+          f"earlier phases), made in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    tokens = FULL_TRAIN_ACCUM * FULL_TRAIN_SEQ
+    losses, norms, step_ms = [], [], []
+    for i in range(FULL_TRAIN_STEPS):
+        compress = i == FULL_TRAIN_STEPS - 1
+        step = trainers[compress]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(opt_state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        print(f"(k2) step {i + 1}{' (int8 gradients)' if compress else ''}"
+              f": loss {losses[-1]!r}, grad norm {norms[-1]!r}, lr "
+              f"{float(m['lr']):.3e}, {step_ms[-1]:.1f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses + norms)
+          and losses[2] < losses[0],
+          f"(k2) losses {losses}, grad norms {norms}")
+    ms = statistics.median(step_ms)
+    matmul_params = cfg.param_count() - cfg.vocab_size * cfg.d_model
+    flops = (6 * matmul_params * tokens + 12 * cfg.n_layers * cfg.n_heads
+             * cfg.d_head * FULL_TRAIN_SEQ * tokens)
+    mfu = flops / (ms / 1e3) / BF16_PEAK_FLOPS
+    print(f"time (k2) {cfg.name} training, {cfg.n_layers} layers, "
+          f"{FULL_TRAIN_ACCUM} x {FULL_TRAIN_SEQ} tokens per step "
+          f"(grad_accum {FULL_TRAIN_ACCUM}): step median {ms:.1f} ms (min "
+          f"{min(step_ms):.1f}, max {max(step_ms):.1f}; {len(step_ms)} steps, "
+          f"CUDA events), {tokens / (ms / 1e3):.1f} tokens/s, MFU "
+          f"{mfu:.4f} ({flops:.4e} model FLOP per step: 6 x {matmul_params:,} "
+          f"matmul parameters x tokens + 12 x L x H x dh x S x tokens for "
+          f"attention, over the H100 SXM dense bfloat16 peak "
+          f"{BF16_PEAK_FLOPS / 1e12:.1f} TFLOP/s); peak memory allocated "
+          f"{peak / 2 ** 30:.3f} GiB against {state_gib:.2f} GiB of "
+          f"float32 state, on {card}", flush=True)
+    del model, opt_state, trainers, batch, m
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--rank"]:
@@ -3233,6 +3526,14 @@ def main() -> int:
     lm_full_phase(dev, card)
     print(f"time (j) the LM phase: {time.perf_counter() - t0:.2f} s (wall)",
           flush=True)
+    # (k) LM training; (j2)'s model and cache are freed
+    t0 = time.perf_counter()
+    check(TRAIN_REFERENCE is not None, "(k) TRAIN_REFERENCE is not set")
+    lm_train_smoke_phase(dev)
+    lm_train_full_2l_phase(dev)
+    lm_train_full_phase(dev, card)
+    print(f"time (k) the LM training phase: {time.perf_counter() - t0:.2f} "
+          f"s (wall)", flush=True)
 
     # -- 4. timings --------------------------------------------------------
     path_ms = {

@@ -1,12 +1,18 @@
-"""Mesh bring-up policy (counterpart of the serving half of
-:mod:`repro.launch.elastic`).
+"""Elastic scaling: mesh bring-up policy and checkpoint restore
+(counterpart of :mod:`repro.launch.elastic`).
 
-:func:`serving_mesh` is the one policy for "how many ranks, in what
-shape" on the serving side: ``EvalSession(backend="graph_sharded")``
-(axis ``"graph"``) and ``Evaluator`` on ``backend="distributed"`` (axis
-``"eval"``) both bring their mesh up through it.  The training-side
-recovery (``make_elastic_mesh`` / ``elastic_restore``) needs the
-checkpoint stack and is not ported.
+One module owns "how many ranks, in what shape" for both altitudes:
+
+* **Serving** (:func:`serving_mesh`): ``EvalSession(backend=
+  "graph_sharded")`` (axis ``"graph"``) and ``Evaluator`` on
+  ``backend="distributed"`` (axis ``"eval"``) both bring their mesh up
+  through it.
+* **Training and recovery** (:func:`make_elastic_mesh` /
+  :func:`elastic_restore`): checkpoints store logical (unsharded)
+  arrays (:mod:`repro_torch.checkpoint.manager`); on restart the mesh is
+  rebuilt from the live world size (:func:`choose_mesh_shape`), so
+  fewer or more ranks just give another mesh shape, and the restored
+  tree lands on the device ``sharding_fn`` names on the new mesh.
 """
 
 from __future__ import annotations
@@ -64,3 +70,31 @@ def serving_mesh(axis: str = "eval", *, shards=None, device=None):
         if group is None:
             n = 1
     return make_mesh((n,), (axis,), group=group, device=device)
+
+
+def make_elastic_mesh(*, device=None):
+    """The training mesh over the ranks of the default process group
+    (one rank without one): ``(data, model)`` of
+    :func:`choose_mesh_shape` of the world size.  ``device`` is this
+    rank's device (its CUDA device by default)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    return make_mesh(choose_mesh_shape(world), ("data", "model"),
+                     device=device)
+
+
+def elastic_restore(directory: str, template, sharding_fn, *, device=None):
+    """Restore the newest valid checkpoint of ``directory`` onto a freshly
+    built mesh (:func:`make_elastic_mesh` on ``device``).
+
+    ``sharding_fn(mesh, template)`` names the device this rank restores
+    the tree onto (a rank of the port holds whole logical arrays, so the
+    reference's per-leaf shardings come down to one device).  Returns
+    ``(tree, step, mesh)``; ``(None, None, mesh)`` when there is no valid
+    checkpoint."""
+    # imported here so the serving path never pays for the checkpoint stack
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    mesh = make_elastic_mesh(device=device)
+    tree, step = CheckpointManager(directory).restore(
+        template, device=sharding_fn(mesh, template))
+    return tree, step, mesh

@@ -4,15 +4,21 @@ softmax cross entropy, as plain PyTorch functions of tensors.
 
 Each keeps the reference's numerics: the norm and the rotary
 embedding compute in float32 and return the input's dtype, the loss
-computes in float32.  The reference's ``chunked_softmax_xent`` and
-``scan_layers`` (its remat policy) serve training, which the port has
-not taken yet.
+computes in float32.  Training adds :func:`chunked_softmax_xent` (the
+LM head's loss in sequence chunks, each chunk's logits recomputed in the
+backward) and :func:`scan_layers` (the layer loop, each layer
+recomputed in the backward under ``remat``): both through non-reentrant
+``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint`` under ``lax.scan``.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x, scale, eps: float = 1e-6):
@@ -61,3 +67,61 @@ def softmax_xent(logits, labels, mask=None):
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     return nll.mean()
+
+
+def _recorded(fn, *args, remat: bool = True):
+    """``fn(*args)``; while autograd records and ``remat`` is set, its
+    intermediates are dropped and recomputed in the backward (only
+    ``args`` are kept)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _xent_terms(logits_fn, xc, lc, mc):
+    logits = logits_fn(xc).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, lc[:, None].long())[:, 0]
+    nll = (lse - picked) * mc
+    zl = (lse ** 2) * mc
+    return nll.sum(), zl.sum(), mc.sum()
+
+
+def chunked_softmax_xent(logits_fn: Callable, x, labels, mask, *,
+                         n_chunks: int, z_loss: float = 1e-4):
+    """Cross entropy over the vocabulary in ``n_chunks`` sequence chunks,
+    so the ``(tokens, V)`` logits never materialize whole.
+
+    ``logits_fn(x_chunk) -> (tokens_chunk, V)``; ``x`` is ``(T, d)``
+    flattened tokens, ``labels`` / ``mask`` ``(T,)``.  Returns ``(loss,
+    count)``: the mean negative log-likelihood over the masked tokens
+    plus ``z_loss`` times their mean squared log-normalizer, and the
+    number of masked tokens, both float32 0-d tensors.  Under autograd
+    each chunk keeps only its slice of ``x`` and recomputes its float32
+    logits in the backward, so one chunk's logits are alive at a time.
+    """
+    T = x.shape[0]
+    assert T % n_chunks == 0, (T, n_chunks)
+    chunk = T // n_chunks
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    loss_sum, z_sum, count = zero, zero, zero
+    mask = mask.float()
+    for c0 in range(0, T, chunk):
+        nll, zl, n = _recorded(_xent_terms, logits_fn, x[c0:c0 + chunk],
+                               labels[c0:c0 + chunk], mask[c0:c0 + chunk])
+        loss_sum, z_sum, count = loss_sum + nll, z_sum + zl, count + n
+    denom = torch.clamp_min(count, 1.0)
+    return loss_sum / denom + z_loss * z_sum / denom, count
+
+
+def scan_layers(block_fn: Callable, carry, layers, *, remat: bool = True):
+    """``carry = block_fn(carry, layer)`` for each ``layer`` in turn (the
+    reference's ``lax.scan`` over stacked layers, as a Python loop).
+    With ``remat`` and autograd recording, each call keeps only its
+    inputs and is recomputed in the backward (the reference's
+    ``jax.checkpoint`` per layer), so the activations of one layer are
+    alive at a time."""
+    for layer in layers:
+        carry = _recorded(block_fn, carry, layer, remat=remat)
+    return carry

@@ -1,5 +1,5 @@
 """Decoder-only transformer LM family, dense and MoE (counterpart of
-:mod:`repro.models.transformer`): the serving path.
+:mod:`repro.models.transformer`): serving and training.
 
 Covers the five LM architectures of :mod:`repro_torch.configs`: GQA
 (query heads padded to the model axis), optional qk-norm (qwen3), qkv
@@ -13,10 +13,25 @@ reference's pytree layout: ``embed``, ``unembed``, ``ln_f`` and the
 ``layers`` dict of tensors stacked over the layers on dim 0, all
 float32 and cast to ``cfg.dtype`` at each use, as in the reference.
 :func:`params_from_reference` turns the reference's parameter pytree
-into the module's state.  The serving methods (:meth:`init_cache`,
-:meth:`prefill`, :meth:`decode_step`) run without autograd; layers run
-as a Python loop, attention query-chunked (``q_chunk``) so the score
-tile is ``(B, H, q_chunk, S)``.
+into the module's state, :meth:`Transformer.param_tree` gives the
+module's parameters in that pytree's layout.  The serving methods
+(:meth:`init_cache`, :meth:`prefill`, :meth:`decode_step`) run without
+autograd; layers run as a Python loop, attention query-chunked
+(``q_chunk``) so the score tile is ``(B, H, q_chunk, S)``.
+
+Training: :meth:`Transformer.forward` runs under autograd with one
+recomputed block per layer when ``cfg.remat`` is set (the reference's
+``jax.checkpoint`` per layer), and :func:`loss_fn` chunks the LM head's
+loss by ``cfg.loss_chunks``.  By default each layer's weights are
+slices of the stacked parameters, so autograd reaches the stacks as any
+module's parameters (``torch.autograd.grad``, hooks); the backward of
+each slice then makes a zero tensor of the whole stack.  With
+:attr:`Transformer.stacked_grads` set (as ``build_lm_trainer`` sets it)
+they are instead leaf views whose ``.grad`` is a view of the stack's
+``.grad``, which the caller allocates: the backward adds each layer's
+gradient into its slice in place, and the stacks' ``.grad`` is the only
+route to their gradients (no autograd edge or parameter hook reaches
+the stacks).
 
 Differences from the reference, none of them in a value:
 
@@ -27,9 +42,10 @@ Differences from the reference, none of them in a value:
   a seed gives other numbers than the reference's ``jax.random`` key;
   tests and the card's smoke hand both packages the same numpy
   parameters instead;
-* ``loss_fn`` (training) belongs to the next slice of the port, as do
-  the sharding hints ``sp_activations`` / ``moe_hints`` (fields kept so
-  that configs copy field for field; they change no value).
+* layers always run as a loop (``scan_layers`` changes nothing), and
+  the sharding hints ``sp_activations`` / ``moe_hints`` are kept so
+  that configs copy field for field: on one device they change no
+  value, as in the reference.
 """
 
 from __future__ import annotations
@@ -370,7 +386,15 @@ class Transformer(nn.Module):
     """The decoder-only LM of ``cfg`` (padded by ``ensure_padded``) on
     ``device`` (CUDA unless the caller passes another).  Parameters are
     allocated, not initialized: call :meth:`init_params` or load a state
-    (:func:`params_from_reference`)."""
+    (:func:`params_from_reference`).
+
+    ``stacked_grads`` (off by default) makes the layers' gradients
+    accumulate in place into the stacked parameters' ``.grad``, which
+    must then be allocated, and only there (see :meth:`_layer_weights`):
+    the memory a full-width trainer needs, but no hook or
+    ``torch.autograd.grad`` sees those gradients."""
+
+    stacked_grads = False
 
     def __init__(self, cfg: TransformerConfig, *, device=None):
         super().__init__()
@@ -414,6 +438,37 @@ class Transformer(nn.Module):
 
     def _layer(self, i: int) -> dict:
         return {name: p[i] for name, p in self.layers.items()}
+
+    def _layer_weights(self) -> list:
+        """Each layer's weights ``{name: tensor}``: slices of the stacks,
+        or, with :attr:`stacked_grads` while autograd records, leaf views
+        of the slices of a stack that requires grad whose ``.grad`` are
+        views of the stack's ``.grad``, so the backward adds into it in
+        place."""
+        L = self.cfg.n_layers
+        out = [{} for _ in range(L)]
+        for name, p in self.layers.items():
+            if not (self.stacked_grads and torch.is_grad_enabled()
+                    and p.requires_grad):
+                for i in range(L):
+                    out[i][name] = p[i]
+                continue
+            if p.grad is None:
+                raise RuntimeError(f"stacked_grads needs layers.{name}.grad "
+                                   f"allocated")
+            base = p.detach()
+            for i in range(L):
+                leaf = base[i].requires_grad_()
+                leaf.grad = p.grad[i]
+                out[i][name] = leaf
+        return out
+
+    def param_tree(self) -> dict:
+        """The parameters in the reference's pytree layout: ``{"embed",
+        "layers": {name: stacked}, "ln_f", "unembed"}`` (the module's own
+        tensors, not copies)."""
+        return {"embed": self.embed, "layers": dict(self.layers.items()),
+                "ln_f": self.ln_f, "unembed": self.unembed}
 
     def _embed(self, tokens):
         return self.embed[tokens.long()].to(self.cfg.dtype)
@@ -461,11 +516,13 @@ class Transformer(nn.Module):
                               c(layer["w_down"])),
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
-    def _block(self, x, i, is_global, positions, cache=None):
-        """Layer ``i`` over the whole sequence; with ``cache`` its keys and
+    def _block(self, x, i, is_global, positions, cache=None, layer=None):
+        """Layer ``i`` (its weights ``layer``, by default slices of the
+        stacks) over the whole sequence; with ``cache`` its keys and
         values are written to the cache's first positions."""
         cfg = self.cfg
-        layer = self._layer(i)
+        if layer is None:
+            layer = self._layer(i)
         B, S, _ = x.shape
         h = common.rms_norm(x, layer["ln1"])
         q, k, v = self._qkv(h, layer)
@@ -483,14 +540,24 @@ class Transformer(nn.Module):
 
     def forward(self, tokens):
         """Final hidden states ``(B, S, d)`` (after ``ln_f``) and the summed
-        MoE aux loss, of tokens ``(B, S)``."""
+        MoE aux loss, of tokens ``(B, S)``.  Under autograd with
+        ``cfg.remat`` each block keeps only its input and is recomputed in
+        the backward."""
         cfg = self.cfg
         x = self._embed(tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)
         aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i, is_global in enumerate(_layer_flags(cfg)):
-            x, aux = self._block(x, i, is_global, positions)
-            aux_sum = aux_sum + aux
+
+        def body(carry, item):
+            x, aux_sum = carry
+            i, is_global, layer = item
+            x, aux = self._block(x, i, is_global, positions, layer=layer)
+            return x, aux_sum + aux
+
+        layers = zip(range(cfg.n_layers), _layer_flags(cfg),
+                     self._layer_weights())
+        x, aux_sum = common.scan_layers(body, (x, aux_sum), layers,
+                                        remat=cfg.remat)
         return common.rms_norm(x, self.ln_f), aux_sum
 
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -549,6 +616,28 @@ class Transformer(nn.Module):
         logits = self._lm_logits(x[:, 0])
         cache["pos"] = pos + 1
         return torch.argmax(logits, dim=-1).to(torch.int32), logits, cache
+
+
+def loss_fn(model: Transformer, batch: dict):
+    """Causal LM loss of ``batch`` ``{"tokens": (B, S), "labels": (B, S)}``
+    (int tensors on the model's device; a label of -1 is masked): the
+    chunked cross entropy with z-loss (``cfg.loss_chunks`` chunks) plus
+    ``router_aux_weight`` times the mean MoE aux loss per layer.  Returns
+    ``(total, {"xent", "aux", "tokens"})``, float32 0-d tensors."""
+    cfg = model.cfg
+    x, aux = model(batch["tokens"])
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    raw = batch["labels"].reshape(-1)
+    labels = torch.clamp_min(raw, 0)
+    mask = (raw >= 0).float()
+    loss, count = common.chunked_softmax_xent(
+        model._lm_logits, xt, labels, mask, n_chunks=cfg.loss_chunks,
+        z_loss=cfg.z_loss)
+    layers = torch.full((), max(cfg.n_layers, 1), dtype=torch.float32,
+                        device=x.device)
+    total = loss + cfg.router_aux_weight * aux / layers
+    return total, {"xent": loss, "aux": aux, "tokens": count}
 
 
 def kv_cache_bytes(cfg: TransformerConfig, batch: int, max_len: int) -> int:

@@ -4,6 +4,12 @@
 Plain functions over (nested) dicts of tensors, the reference's pytrees:
 optimizer state is congruent with the params, global-norm clipping,
 cosine schedule with warmup, and the per-chunk int8 gradient compression.
+:func:`apply_updates` is functional, as the reference's;
+:func:`apply_updates_` computes the same step in place, block by block
+(a trainer at full width has no room for a second copy of its
+parameters and moments), and :func:`int8_roundtrip_` overwrites each
+gradient with ``decompress_int8(compress_int8(.))`` of it, row block by
+row block.
 
 Not ``torch.optim.AdamW``: the reference folds the decay into the update,
 ``p - lr * (mhat / (sqrt(vhat) + eps) + wd * p)``, with float32 bias
@@ -106,13 +112,17 @@ def global_norm(tree):
                           for x in leaves))
 
 
+def _clip_scale(norm, max_norm):
+    return torch.minimum(
+        _scalar(1.0, norm),
+        _scalar(max_norm, norm) / torch.maximum(norm, _scalar(1e-9, norm)))
+
+
 def clip_by_global_norm(grads, max_norm):
     """``grads`` scaled to a global norm of at most ``max_norm``; returns
     ``(clipped, pre-clip norm)``."""
     norm = global_norm(grads)
-    scale = torch.minimum(
-        _scalar(1.0, norm),
-        _scalar(max_norm, norm) / torch.maximum(norm, _scalar(1e-9, norm)))
+    scale = _clip_scale(norm, max_norm)
     return _map(lambda g: g * scale, grads), norm
 
 
@@ -147,11 +157,57 @@ def apply_updates(params, grads, state, cfg: AdamWConfig,
     return pick(0), new_state, {"grad_norm": gnorm, "lr": lr}
 
 
+# elements per piece of a leaf that apply_updates_ updates at once, and
+# chunks per piece that int8_roundtrip_ encodes at once: each bounds the
+# temporaries of an in-place step (64 MiB and 16 MiB of float32)
+BLOCK = 1 << 24
+ROWS = 1 << 16
+# elements per int8 chunk, each with its own scale
+CHUNK = 256
+
+
+def _blocks(t, block):
+    flat = t.view(-1)
+    return [flat[i:i + block] for i in range(0, flat.numel(), block)]
+
+
+@torch.no_grad()
+def apply_updates_(params, grads, state, cfg: AdamWConfig):
+    """:func:`apply_updates` in place: clips ``grads``, then updates each
+    parameter and its moments ``state["m"]`` / ``state["v"]`` and
+    advances ``state["step"]``, ``BLOCK`` elements at a time, with the
+    functional step's operations in its order, so the results are
+    bit-equal to it.  Every leaf is a contiguous float32 tensor.  Returns
+    the metrics ``{"grad_norm", "lr"}``."""
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, cfg.clip_norm)
+    step = state["step"] + 1
+    lr = cosine_schedule(cfg)(step)
+    step_f = step.to(torch.float32)
+    b1c = 1.0 - cfg.b1 ** step_f
+    b2c = 1.0 - cfg.b2 ** step_f
+    leaves = [_leaves(t) for t in (params, grads, state["m"], state["v"])]
+    for p, g, m, v in zip(*leaves):
+        for t in (p, g, m, v):
+            if t.dtype != torch.float32:
+                raise TypeError(f"apply_updates_ takes float32 leaves, got "
+                                f"{t.dtype}")
+        for pb, gb, mb, vb in zip(*(_blocks(t, BLOCK) for t in (p, g, m, v))):
+            gb.mul_(scale)
+            mb.mul_(cfg.b1).add_(gb * (1 - cfg.b1))
+            vb.mul_(cfg.b2).add_((gb * (1 - cfg.b2)).mul_(gb))
+            upd = (mb / b1c).div_(torch.sqrt(vb / b2c).add_(cfg.eps))
+            upd.add_(pb * cfg.weight_decay).mul_(lr)
+            pb.sub_(upd)
+    state["step"] = step
+    return {"grad_norm": gnorm, "lr": lr}
+
+
 # ---------------------------------------------------------------------------
 # gradient compression (optional int8 all-reduce payload)
 # ---------------------------------------------------------------------------
 
-def compress_int8(tree, chunk: int = 256):
+def compress_int8(tree, chunk: int = CHUNK):
     """Per-chunk-scaled int8 encode: a payload 4x smaller than float32.
     Each leaf becomes ``{"q": int8 (n_chunks, chunk), "scale": float32
     (n_chunks, 1), "shape": original shape}``."""
@@ -159,14 +215,18 @@ def compress_int8(tree, chunk: int = 256):
         flat = x.to(torch.float32).reshape(-1)
         pad = (-flat.shape[0]) % chunk
         flat = torch.cat([flat, flat.new_zeros(pad)])
-        c = flat.reshape(-1, chunk)
-        scale = torch.amax(torch.abs(c), dim=1, keepdim=True) \
-            / _scalar(127.0, c)
-        q = torch.clamp(torch.round(c / torch.maximum(scale,
-                                                      _scalar(1e-12, c))),
-                        -127, 127).to(torch.int8)
+        q, scale = _encode_rows(flat.reshape(-1, chunk))
         return {"q": q, "scale": scale, "shape": tuple(x.shape)}
     return _map(enc, tree)
+
+
+def _encode_rows(c):
+    """int8 codes and float32 scales of the rows of ``c``."""
+    scale = torch.amax(torch.abs(c), dim=1, keepdim=True) \
+        / _scalar(127.0, c)
+    q = torch.clamp(torch.round(c / torch.maximum(scale, _scalar(1e-12, c))),
+                    -127, 127).to(torch.int8)
+    return q, scale
 
 
 def decompress_int8(enc_tree):
@@ -177,3 +237,28 @@ def decompress_int8(enc_tree):
             n *= s
         return c.reshape(-1)[:n].reshape(e["shape"])
     return _map(dec, enc_tree, is_leaf=_is_enc)
+
+
+@torch.no_grad()
+def int8_roundtrip_(tree):
+    """Overwrite every leaf (a contiguous float32 tensor) with its values
+    after :func:`compress_int8` (``chunk=CHUNK``) and
+    :func:`decompress_int8`, ``ROWS`` chunks at a time (the last chunk of
+    a leaf padded with zeros, as ``compress_int8`` pads it), without
+    holding the encoded tree."""
+    for x in _leaves(tree):
+        if x.dtype != torch.float32:
+            raise TypeError(f"int8_roundtrip_ takes float32 leaves, got "
+                            f"{x.dtype}")
+        flat = x.view(-1)
+        whole = flat.numel() // CHUNK * CHUNK
+        for c in _blocks(flat[:whole], ROWS * CHUNK):
+            c = c.view(-1, CHUNK)
+            q, scale = _encode_rows(c)
+            torch.mul(q.to(torch.float32), scale, out=c)
+        if whole < flat.numel():
+            tail = torch.cat([flat[whole:],
+                              flat.new_zeros(CHUNK - flat.numel() + whole)])
+            q, scale = _encode_rows(tail.view(1, CHUNK))
+            flat[whole:] = (q.to(torch.float32) * scale).view(-1)[
+                :flat.numel() - whole]

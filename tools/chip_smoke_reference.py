@@ -33,6 +33,7 @@ Usage (from the repository root)::
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --near-parallel
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --bf16
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --lm
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --train
 
 ``--drag`` computes the constants of ``chip_smoke.py``'s phase (f), op by
 op: the reference's ``EvalSession(EvalConfig(radius=0.5, n_strips=512),
@@ -94,6 +95,19 @@ numpy draw, handed to the reference as its pytree) and a ``(2, 16)``
 prompt from ``numpy.random.default_rng(LM_SEED + 1)``: the reference's
 ``lm_generate`` tokens (8 new), the first 8 prefill logits of each row
 and each row's L2 norm of the prefill logits.  About half a minute.
+
+``--train`` computes the constants of phase (k): (k1) for each of the
+five LM smoke configs at ``dtype=float32``, parameters from
+``numpy_params(cfg, TRAIN_SEED)``, the reference's jitted
+``build_lm_trainer`` for three steps on the ``TokenStream`` batches of
+``(TRAIN_BATCH, TRAIN_SEQ)`` (the second step with ``grad_accum=2``;
+the constants are ``chip_smoke.py``'s):
+loss and grad norm per step; (k2a) qwen3-4b at its published width with
+2 layers at ``float32``, ``numpy_params(cfg, TRAIN_SEED)`` and one
+``TokenStream`` batch of ``FULL_2L_BATCH`` x ``FULL_2L_SEQ``: the
+jitted ``loss_fn``'s total and xent and the global norm of its gradient.
+About a minute of CPU and 15 GB (the 2-layer model's 0.96 B float32
+parameters, its gradient and their copies).
 
 ``--near-parallel`` runs the reference's engine on
 ``repro_torch.kernels.fixtures.near_parallel_layouts()`` (``RADIUS`` 2.0,
@@ -236,6 +250,63 @@ def compute_lm():
                          prefill_logits_head=logits[:, :8].tolist(),
                          prefill_logits_norm=np.linalg.norm(
                              logits.astype(np.float64), axis=1).tolist())
+    return out
+
+
+def compute_train():
+    """Phase (k1): three trainer steps of each LM smoke config at float32;
+    (k2a): qwen3-4b at full width with 2 layers, one loss and gradient."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    import torch
+
+    from repro import configs as ref_configs
+    from repro.data.pipeline import TokenStream
+    from repro.launch.train import build_lm_trainer
+    from repro.models import transformer as ref_tf
+    from repro.optim import adamw
+    from repro_torch import configs as t_configs
+    from repro_torch.models.transformer import numpy_params
+    k = _smoke()
+
+    out = {"smoke": {}}
+    opt_cfg = adamw.AdamWConfig(**k.TRAIN_OPT)
+    for arch in t_configs.ARCH_IDS[:5]:
+        tcfg = dataclasses.replace(t_configs.get_arch(arch).smoke_config,
+                                   dtype=torch.float32)
+        rcfg = dataclasses.replace(ref_configs.get_arch(arch).smoke_config,
+                                   dtype=jnp.float32).with_mesh(1)
+        params = jax.tree.map(jnp.asarray, numpy_params(tcfg, k.TRAIN_SEED))
+        state = adamw.init_state(params)
+        steps = {a: build_lm_trainer(rcfg, opt_cfg, grad_accum=a)
+                 for a in set(k.TRAIN_ACCUM)}
+        stream = TokenStream(rcfg.vocab_size, k.TRAIN_SEQ, k.TRAIN_BATCH,
+                             seed=k.TRAIN_SEED)
+        rows = {"loss": [], "grad_norm": []}
+        for a in k.TRAIN_ACCUM:
+            batch = jax.tree.map(jnp.asarray, stream.next_batch())
+            params, state, m = steps[a](params, state, batch)
+            for key in rows:
+                rows[key].append(float(m[key]))
+        out["smoke"][arch] = rows
+
+    tcfg = dataclasses.replace(t_configs.get_arch("qwen3-4b").config,
+                               n_layers=2, dtype=torch.float32)
+    rcfg = dataclasses.replace(ref_configs.get_arch("qwen3-4b").config,
+                               n_layers=2, dtype=jnp.float32).with_mesh(1)
+    t0 = time.perf_counter()
+    params = jax.tree.map(jnp.asarray, numpy_params(tcfg, k.TRAIN_SEED))
+    batch = jax.tree.map(jnp.asarray, TokenStream(
+        rcfg.vocab_size, k.FULL_2L_SEQ, k.FULL_2L_BATCH,
+        seed=k.TRAIN_SEED).next_batch())
+    (loss, mets), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: ref_tf.loss_fn(p, b, rcfg), has_aux=True))(params,
+                                                               batch)
+    out["full_2l"] = dict(loss=float(loss), xent=float(mets["xent"]),
+                          tokens=float(mets["tokens"]),
+                          grad_norm=float(adamw.global_norm(grads)),
+                          seconds=time.perf_counter() - t0)
     return out
 
 
@@ -529,6 +600,9 @@ def main():
                     help="phase (i): the main path at precision='bfloat16'")
     ap.add_argument("--lm", action="store_true",
                     help="phase (j1): the five LM smoke configs")
+    ap.add_argument("--train", action="store_true",
+                    help="phase (k): LM training, the smoke configs and "
+                         "qwen3-4b at full width with 2 layers")
     ap.add_argument("--near-parallel", action="store_true",
                     help="the reference's jitted and op-by-op E_ca on the "
                          "near-parallel layouts")
@@ -538,6 +612,8 @@ def main():
             out = {"eager": compute_bf16()}
     elif args.lm:
         out = compute_lm()
+    elif args.train:
+        out = compute_train()
     elif args.search:
         out = {"eager": compute_search()}
     elif args.near_parallel:

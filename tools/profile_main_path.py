@@ -23,9 +23,18 @@ host clock into the probe (with its fetch), the host's dirty-set
 planning, the delta's enqueue and the scores' fetch (which waits for the
 device), as medians over 20 frames.
 
+``--train`` profiles instead one step of ``chip_smoke.py``'s (k2):
+qwen3-4b at full width (``FULL_TRAIN_LAYERS`` layers), 4 micro-batches
+of 4096 tokens, bfloat16 products on float32 state, remat, the loss in
+16 chunks, the in-place AdamW update; it prints the wall time, the
+device time and idle share, the kernels that take the most device time,
+and the device time by kind of kernel (matrix products, softmax,
+reductions, casts to bfloat16, copies and other casts, other
+elementwise).
+
 Usage (from the repository root, on a CUDA machine)::
 
-    python tools/profile_main_path.py
+    python tools/profile_main_path.py [--train]
 """
 
 from __future__ import annotations
@@ -43,14 +52,14 @@ sys.path.insert(0, str(ROOT))
 RUNS = 3
 
 
-def profile(label, fn, card):
+def profile(label, fn, card, runs=RUNS, top_n=8, width=90):
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     fn()
     torch.cuda.synchronize()
     walls = []
-    for _ in range(RUNS):
+    for _ in range(runs):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -58,24 +67,58 @@ def profile(label, fn, card):
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(RUNS):
+        for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / RUNS
+        wall = (time.perf_counter() - t0) * 1e3 / runs
     # device-side events only (kernels and copies): CPU ops carry the
     # device time of what they launch too, which would count it twice
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")
               and e.self_device_time_total > 0]
-    device_us = sum(e.self_device_time_total for e in events) / RUNS
+    device_us = sum(e.self_device_time_total for e in events) / runs
     print(f"{label}: wall {statistics.median(walls):.3f} ms unprofiled "
-          f"(median of {RUNS}), {wall:.3f} ms profiled; device "
+          f"(median of {runs}), {wall:.3f} ms profiled; device "
           f"{device_us / 1e3:.3f} ms; idle share "
           f"{1 - device_us / 1e3 / wall:.3f} on {card}")
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:top_n]
     for e in top:
-        print(f"    {e.self_device_time_total / RUNS / 1e3:9.4f} ms "
-              f"x{e.count // RUNS:<5d} {e.key[:90]}")
+        print(f"    {e.self_device_time_total / runs / 1e3:9.4f} ms "
+              f"x{e.count // runs:<5d} {e.key[:width]}")
+    return events
+
+
+# kinds of kernel, by a word of their name (first match wins).  A cast to
+# bfloat16 has a kernel of its own; ``direct_copy`` runs both same-type
+# copies and the other casts (to float32 among them), which its name
+# does not tell apart
+KINDS = (("matrix products", ("gemm", "nvjet", "cutlass", "xmma", "sm90")),
+         ("softmax", ("softmax",)),
+         ("reductions", ("reduce", "norm")),
+         ("casts to bfloat16", ("bfloat16_copy",)),
+         ("copies and other casts", ("copy", "memcpy", "memset", "cat",
+                                     "index")),
+         ("other elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def train_profile(card):
+    """One step of ``chip_smoke.py``'s (k2), profiled."""
+    import torch
+    from chip_smoke import full_train_setup
+
+    dev = torch.device("cuda")
+    cfg, model, opt_state, batch, trainers = full_train_setup(dev)
+    events = profile(f"(k2) {cfg.name} training step, {cfg.n_layers} "
+                     f"layers", lambda: trainers[False](opt_state, batch),
+                     card, runs=1, top_n=20, width=200)
+    kinds = {}
+    for e in events:
+        name = e.key.lower()
+        kind = next((k for k, words in KINDS
+                     if any(w in name for w in words)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        print(f"    {kind}: {ms:.3f} ms")
 
 
 def main() -> int:
@@ -88,6 +131,9 @@ def main() -> int:
     from repro_torch.api import EvalConfig, Evaluator, evaluate_exact
 
     card = card_line()
+    if sys.argv[1:] == ["--train"]:
+        train_profile(card)
+        return 0
     pos, edges, batch = inputs()
     cfg = EvalConfig(radius=RADIUS, n_strips=N_STRIPS)
     ev = Evaluator(cfg)
