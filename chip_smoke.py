@@ -149,6 +149,30 @@ Phases (any failed check raises):
    and falling, the step time (CUDA events), tokens per second, MFU
    against the H100 SXM's dense bfloat16 peak, and peak memory beside
    the 16 bytes per parameter of its state.
+   (l) the GNN and recsys families (``repro_torch.models.gnn``,
+   ``.recsys``, ``graphs.sampler``), float32 with TF32 off, every
+   kernel's launch count set to 0 before and required to be 0 after (no
+   kernel of the port lies on these paths): (l1) the smoke configs of
+   gcn-cora, graphsage-reddit (full graph, and on a fanout block fed in)
+   and xdeepfm with parameters from ``numpy_params(cfg, GNN_SEED)`` on
+   :func:`gnn_smoke_batch`'s inputs (masked edges and nodes, a seed
+   without neighbours): logits, loss, gradient norm and ``GNN_STEPS``
+   in-place AdamW steps' losses, and xdeepfm's retrieval scores, against
+   ``GNN_REFERENCE`` at ``TRAIN_RTOL``; (l2) gcn-cora at ``full_graph_sm``
+   (Cora's 2,708 nodes, 10,556 edges, 1,433 features, 7 classes;
+   synthetic features and labels), its logits against the port on the
+   CPU, the forward and a training step timed; (l3) graphsage-reddit at
+   ``minibatch_lg`` (1,024 seeds, fanout 15-10, 602 features, 41
+   classes) sampled on the card from a graph of Reddit's size (232,965
+   nodes, 114,615,892 CSR entries, drawn in bulk), every unmasked
+   neighbour of the first 64 seeds adjacent, sampling, forward and a
+   training step timed apart; (l4) xdeepfm at its published config
+   (91,020,160 table rows, 1,000,000 items) initialised on the card:
+   ``serve_p99`` (512 rows) equal to the same rows of ``serve_bulk``
+   (262,144 rows, the CIN in chunks), ``retrieval_cand`` against a
+   float64 recount, two ``train_batch`` steps (65,536 rows) on one
+   ``ClickLogStream`` batch with the second loss below the first; the
+   latencies and peak memory.
 4. **Timings**: median of 5 CUDA-event-timed runs after a warm-up, for
    (a)-(e3) and (e5); for (f), over 2 replays of the drag on fresh
    sessions, the median and p95 of a frame's ``update`` (host clock; the
@@ -171,7 +195,8 @@ The last lines are a ``{"kernels": [...]}`` JSON line (the four kernels
 over (a)-(g), the row-range launches of kernels 2 and 3 over (h) as
 ``occlusion_pairs_rows`` and ``segment_crossing_rows``, and the bfloat16
 instantiations of kernels 1 and 2 over (i) as ``strip_reversal_bf16``
-and ``occlusion_pairs_bf16``), the card line
+and ``occlusion_pairs_bf16``; each entry's ``launches_l`` is its count
+in (l), 0), the card line
 from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
 ``python3 chip_smoke.py --rank R --world W --port P`` is one rank of
 (h)'s gloo group, which the script starts itself.
@@ -807,6 +832,370 @@ FULL_TRAIN_LAYERS, FULL_TRAIN_SEQ = 36, 4096
 FULL_TRAIN_ACCUM, FULL_TRAIN_STEPS, FULL_TRAIN_LR = 4, 4, 1e-4
 # H100 SXM dense bfloat16 tensor-core peak (NVIDIA data sheet), FLOP/s
 BF16_PEAK_FLOPS = 989.4e12
+# (l): the GNN and recsys families.  (l1) the smoke configs at float32 on
+# numpy_params(cfg, GNN_SEED) and gnn_smoke_batch's inputs: a forward,
+# then GNN_STEPS in-place AdamW steps (AdamWConfig(**GNN_OPT), the
+# reference's smoke-test optimizer), against GNN_REFERENCE at TRAIN_RTOL
+GNN_SEED, GNN_STEPS = 0, 3
+GNN_OPT = dict(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+GNN_CASES = ("gcn-cora", "graphsage-reddit", "graphsage-sampled", "xdeepfm")
+# (l2) gcn-cora at src/repro/launch/cells.py's full_graph_sm (Cora's
+# published size), padded to multiples of 512 as the cell pads it
+CORA_NODES, CORA_EDGES, CORA_FEAT, CORA_CLASSES = 2_708, 10_556, 1_433, 7
+# (l3) graphsage-reddit at minibatch_lg (1,024 seeds, fanout 15-10) on a
+# graph of Reddit's size as PyG's Reddit dataset gives it: 232,965 nodes,
+# 114,615,892 directed CSR entries from 57,307,946 undirected edge rows
+REDDIT_NODES, REDDIT_ROWS, REDDIT_FEAT, REDDIT_CLASSES = \
+    232_965, 57_307_946, 602, 41
+REDDIT_SEEDS, REDDIT_FANOUT, REDDIT_CHECKED = 1_024, (15, 10), 64
+# (l2), (l3) training steps timed (median), at GNN_FULL_LR
+GNN_FULL_STEPS, GNN_FULL_LR = 5, 1e-3
+# (l4) xdeepfm at its published config: serve_p99, serve_bulk,
+# retrieval_cand and two train_batch steps on one ClickLogStream batch
+XDFM_P99, XDFM_BULK, XDFM_TRAIN, XDFM_STEPS, XDFM_LR = \
+    512, 262_144, 65_536, 2, 1e-4
+# the bulk call's first XDFM_P99 logits against the p99 call's, and the
+# retrieval scores against a float64 recount, each within this fraction
+# of the largest magnitude
+XDFM_SAME_RTOL, XDFM_SCORES_RTOL = 1e-5, 1e-4
+# JAX reference constants of (l1), made on the CPU with
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --gnn
+# (the reference's modules op by op on the same numpy parameters and
+# inputs; logits in full, the retrieval scores' first 16 and L2 norm;
+# about 40 s of CPU)
+GNN_REFERENCE = {'gcn-cora': {'logits': [0.5069126486778259,
+                         0.30858391523361206,
+                         0.5167175531387329,
+                         0.20222531259059906,
+                         0.12843400239944458,
+                         0.12352809309959412,
+                         0.023561708629131317,
+                         -0.13402006030082703,
+                         -0.21766583621501923,
+                         0.6963360905647278,
+                         0.7624636888504028,
+                         0.6009795665740967,
+                         0.26846110820770264,
+                         0.29911473393440247,
+                         0.28203508257865906,
+                         0.7515414953231812,
+                         0.6545933485031128,
+                         0.778952956199646,
+                         0.628263533115387,
+                         0.8320399522781372,
+                         0.5622397661209106,
+                         0.19551680982112885,
+                         0.1428006887435913,
+                         -0.04258570820093155,
+                         0.5414441227912903,
+                         0.2256172001361847,
+                         0.38362085819244385,
+                         0.1610967367887497,
+                         -0.015183672308921814,
+                         -0.024486854672431946,
+                         0.626350998878479,
+                         0.7780171632766724,
+                         0.5784364938735962,
+                         0.33516108989715576,
+                         0.5735591650009155,
+                         0.16420282423496246,
+                         0.6498379707336426,
+                         0.5271283984184265,
+                         0.4538233280181885,
+                         0.48547232151031494,
+                         0.4454801082611084,
+                         0.4423828125,
+                         0.30134689807891846,
+                         0.38474178314208984,
+                         0.28356704115867615,
+                         0.9054617285728455,
+                         0.9196819067001343,
+                         0.9186059832572937,
+                         0.373573899269104,
+                         0.29540708661079407,
+                         0.3441631495952606,
+                         0.8434723019599915,
+                         1.4481092691421509,
+                         0.6730536222457886,
+                         0.5122132301330566,
+                         0.11226841807365417,
+                         0.2784304618835449,
+                         0.3453454077243805,
+                         0.16130557656288147,
+                         0.1860344409942627,
+                         0.5530000329017639,
+                         0.8028269410133362,
+                         0.48462092876434326,
+                         0.3987501859664917,
+                         0.5329477787017822,
+                         0.1930522918701172,
+                         0.5409538745880127,
+                         0.5816630125045776,
+                         0.39367589354515076,
+                         0.6418664455413818,
+                         0.7763572335243225,
+                         0.6312234401702881,
+                         0.5628334283828735,
+                         0.24650132656097412,
+                         0.35476821660995483,
+                         0.6034422516822815,
+                         0.5195701122283936,
+                         0.38997265696525574,
+                         0.5366145968437195,
+                         0.3377962112426758,
+                         0.4874223470687866,
+                         0.3546313941478729,
+                         0.6407322287559509,
+                         0.25248876214027405,
+                         0.5966191291809082,
+                         0.8202356100082397,
+                         0.5773006677627563,
+                         0.7064810991287231,
+                         0.6864351630210876,
+                         0.5637692213058472,
+                         0.33650052547454834,
+                         0.3484429717063904,
+                         0.27386826276779175,
+                         0.37925437092781067,
+                         0.5958449840545654,
+                         0.18726235628128052,
+                         -0.019378384575247765,
+                         0.18170738220214844,
+                         -0.21597149968147278,
+                         0.012113191187381744,
+                         0.010357864201068878,
+                         -0.12204340100288391,
+                         0.30696922540664673,
+                         -0.11053073406219482,
+                         0.2092539370059967,
+                         0.008927807211875916,
+                         -0.07921193540096283,
+                         -0.4737377464771271,
+                         0.42984241247177124,
+                         -0.2067367434501648,
+                         0.2854228615760803,
+                         0.586378812789917,
+                         0.7160104513168335,
+                         0.4046970009803772,
+                         0.4148140549659729,
+                         0.3165162205696106,
+                         0.4146021008491516,
+                         1.0254731178283691,
+                         1.3123044967651367,
+                         0.9535680413246155],
+              'loss': 1.1270427703857422,
+              'grad_norm': 0.2332545667886734,
+              'losses': [1.1270427703857422,
+                         1.126181960105896,
+                         1.1244760751724243]},
+ 'graphsage-reddit': {'logits': [0.061182886362075806,
+                                 0.5269701480865479,
+                                 0.04732475429773331,
+                                 -0.2871233820915222,
+                                 0.6986367702484131,
+                                 0.22218601405620575,
+                                 0.8844122886657715,
+                                 0.9142128229141235,
+                                 0.2516483664512634,
+                                 0.5696433782577515,
+                                 1.433576226234436,
+                                 0.6045078039169312,
+                                 0.7828153371810913,
+                                 1.5382338762283325,
+                                 -0.9429519176483154,
+                                 -0.5860534906387329,
+                                 1.3653632402420044,
+                                 -1.4810975790023804,
+                                 0.05344662070274353,
+                                 1.3073534965515137,
+                                 -0.5911542177200317,
+                                 0.5409705638885498,
+                                 1.1907589435577393,
+                                 0.35087525844573975,
+                                 -0.7702559232711792,
+                                 2.233591079711914,
+                                 -0.4489533603191376,
+                                 0.614109218120575,
+                                 2.049973249435425,
+                                 1.2418015003204346,
+                                 1.038767695426941,
+                                 1.1130414009094238,
+                                 -0.3783385157585144,
+                                 0.788045346736908,
+                                 1.699204444885254,
+                                 0.548793613910675,
+                                 -0.11609017848968506,
+                                 2.0060038566589355,
+                                 -0.24969933927059174,
+                                 -0.4735102653503418,
+                                 1.4982339143753052,
+                                 1.118186116218567,
+                                 1.3808963298797607,
+                                 1.0713375806808472,
+                                 0.008668676018714905,
+                                 -0.26559317111968994,
+                                 1.3967945575714111,
+                                 -2.1199114322662354,
+                                 0.1441653072834015,
+                                 0.31779447197914124,
+                                 -0.33533963561058044,
+                                 0.32049721479415894,
+                                 1.2635327577590942,
+                                 -1.1913467645645142,
+                                 0.06913493573665619,
+                                 0.4489617943763733,
+                                 0.32669809460639954,
+                                 -0.6117128133773804,
+                                 1.7849583625793457,
+                                 -1.5203701257705688,
+                                 0.4080187678337097,
+                                 1.1689437627792358,
+                                 -0.2852834463119507,
+                                 0.3542637526988983,
+                                 0.77228844165802,
+                                 -0.3456043601036072,
+                                 -0.44994544982910156,
+                                 1.4329242706298828,
+                                 0.20172113180160522,
+                                 0.6188272833824158,
+                                 1.1134381294250488,
+                                 1.3115383386611938,
+                                 0.7749525308609009,
+                                 1.1055443286895752,
+                                 -0.5582435131072998,
+                                 1.3099344968795776,
+                                 2.2219886779785156,
+                                 -1.0568711757659912,
+                                 -0.7810872197151184,
+                                 0.35050463676452637,
+                                 -1.2881224155426025,
+                                 -0.2883530855178833,
+                                 1.4680393934249878,
+                                 -0.29301947355270386,
+                                 -0.3657287359237671,
+                                 1.2569488286972046,
+                                 -1.6142672300338745,
+                                 0.45800602436065674,
+                                 1.4489701986312866,
+                                 1.4394036531448364,
+                                 0.47580617666244507,
+                                 1.367830514907837,
+                                 1.1686067581176758,
+                                 0.7366524934768677,
+                                 1.237418293952942,
+                                 0.5853755474090576,
+                                 -0.680099606513977,
+                                 1.1985886096954346,
+                                 -0.0029415488243103027,
+                                 1.168813705444336,
+                                 1.1761988401412964,
+                                 0.054930709302425385,
+                                 0.5452252626419067,
+                                 0.805075466632843,
+                                 -0.27774032950401306,
+                                 0.269908607006073,
+                                 2.011012077331543,
+                                 1.0654784440994263,
+                                 0.8641863465309143,
+                                 1.4471001625061035,
+                                 0.1310652494430542,
+                                 0.3885420560836792,
+                                 1.4028451442718506,
+                                 0.23594355583190918,
+                                 -0.36272209882736206,
+                                 0.17556987702846527,
+                                 -0.7253037095069885,
+                                 -0.22118216753005981,
+                                 2.370245933532715,
+                                 -2.36877703666687],
+                      'loss': 1.5011401176452637,
+                      'grad_norm': 1.1199244260787964,
+                      'losses': [1.5011401176452637,
+                                 1.495403528213501,
+                                 1.4840643405914307]},
+ 'graphsage-sampled': {'logits': [-0.0794057548046112,
+                                  0.3012251853942871,
+                                  -0.28446757793426514,
+                                  -0.5971021056175232,
+                                  2.2381129264831543,
+                                  1.3212627172470093,
+                                  0.8974559903144836,
+                                  0.925190806388855,
+                                  -0.06829306483268738,
+                                  -0.5046334266662598,
+                                  0.8799571990966797,
+                                  0.395330011844635,
+                                  -0.4388168156147003,
+                                  0.703548789024353,
+                                  -0.1638558804988861,
+                                  1.2456707954406738,
+                                  1.1028764247894287,
+                                  -0.09852947294712067,
+                                  -0.5704609751701355,
+                                  0.7636750936508179,
+                                  -1.2642114162445068,
+                                  0.4454335570335388,
+                                  0.6520783305168152,
+                                  -0.3623192608356476],
+                       'loss': 1.1632715463638306,
+                       'grad_norm': 1.4546698331832886,
+                       'losses': [1.1632715463638306,
+                                  1.1557620763778687,
+                                  1.1408623456954956]},
+ 'xdeepfm': {'logits': [0.02236831746995449,
+                        -0.01491298247128725,
+                        -0.009100478142499924,
+                        -0.03100842610001564,
+                        -0.012694540433585644,
+                        -0.018722575157880783,
+                        0.0058674681931734085,
+                        -0.03628986328840256,
+                        -0.0382717102766037,
+                        -0.024631429463624954,
+                        -0.005294016562402248,
+                        -0.012418553233146667,
+                        0.0015511875972151756,
+                        0.005017413757741451,
+                        -0.009461138397455215,
+                        -0.02796490490436554,
+                        -0.02897360920906067,
+                        0.039014916867017746,
+                        -0.043043289333581924,
+                        0.0077209859155118465,
+                        0.02155131846666336,
+                        -0.005956460256129503,
+                        0.039206989109516144,
+                        -0.026112383231520653,
+                        0.009544402360916138,
+                        -0.038217198103666306,
+                        -0.002610811498016119,
+                        0.028823889791965485,
+                        -0.0067909411154687405,
+                        0.030983032658696175,
+                        -0.019469644874334335,
+                        -0.046153128147125244],
+             'scores_head': [-0.0001311398227699101,
+                             0.00015741233073640615,
+                             -9.096325084101409e-05,
+                             5.718014654121362e-05,
+                             0.00025602258392609656,
+                             4.454495501704514e-05,
+                             0.00014903185365255922,
+                             -7.724409806542099e-05,
+                             0.00012681380030699074,
+                             3.635548637248576e-05,
+                             0.00014778960030525923,
+                             -7.040234049782157e-05,
+                             -1.878372313512955e-05,
+                             -3.3141914173029363e-06,
+                             -5.912039341637865e-05,
+                             0.00015523785259574652],
+             'scores_norm': 0.0024169766398335324,
+             'loss': 0.6923440098762512,
+             'grad_norm': 0.22646033763885498,
+             'losses': [0.6923440098762512,
+                        0.6906144022941589,
+                        0.6872937679290771]}}
 INT_FIELDS = ("node_occlusion", "edge_crossing", "crossing_count_for_angle",
               "overflow")
 FLOAT_FIELDS = ("minimum_angle", "edge_length_variation",
@@ -3033,6 +3422,465 @@ def lm_train_full_phase(dev, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase (l): the GNN and recsys families
+# ---------------------------------------------------------------------------
+
+def gnn_smoke_batch(case, cfg):
+    """(l1)'s inputs of ``case`` as numpy arrays from
+    ``numpy.random.default_rng(GNN_SEED)``, for ``cfg`` (either package's
+    smoke config; ``tools/chip_smoke_reference.py --gnn`` feeds the
+    reference the same): 40 nodes and 120 random edges with 12 edges and
+    4 nodes masked; a fanout block of 8 seeds with random masks (seed 0
+    without neighbours, ``m2 &= m1``); 32 rows of xDeepFM ids."""
+    import numpy as np
+    rng = np.random.default_rng(GNN_SEED)
+    if case == "xdeepfm":
+        ids = rng.integers(0, 64, (32, cfg.n_fields)) + cfg.field_offsets
+        return {"ids": ids.astype(np.int32),
+                "labels": rng.integers(0, 2, 32).astype(np.float32)}
+    if case == "graphsage-sampled":
+        (f1, f2), d, B = cfg.sample_sizes, cfg.d_in, 8
+        m1 = rng.random((B, f1)) < 0.7
+        m1[0] = False
+        return {"x0": rng.normal(size=(B, d)).astype(np.float32),
+                "x1": rng.normal(size=(B, f1, d)).astype(np.float32),
+                "x2": rng.normal(size=(B, f1, f2, d)).astype(np.float32),
+                "m1": m1,
+                "m2": (rng.random((B, f1, f2)) < 0.6) & m1[:, :, None],
+                "labels": rng.integers(0, cfg.n_classes, B).astype(np.int32)}
+    n, e = 40, 120
+    return {"node_feat": rng.normal(size=(n, cfg.d_in)).astype(np.float32),
+            "edge_src": rng.integers(0, n, e).astype(np.int32),
+            "edge_dst": rng.integers(0, n, e).astype(np.int32),
+            "edge_mask": np.arange(e) < e - 12,
+            "node_mask": np.arange(n) < n - 4,
+            "labels": rng.integers(0, cfg.n_classes, n).astype(np.int32)}
+
+
+def gnn_model(case, cfg, batch):
+    """``(forward(params), loss_of(out))`` of ``case`` on ``batch`` (a
+    dict of tensors), as the reference's smoke tests train it."""
+    from repro_torch.models import gnn, recsys
+    if case == "xdeepfm":
+        return (lambda p: recsys.xdeepfm_logits(p, batch["ids"], cfg),
+                lambda out: recsys.bce_loss(out, batch["labels"]))
+    fwd = {"gcn-cora": gnn.gcn_forward,
+           "graphsage-reddit": gnn.sage_forward_full,
+           "graphsage-sampled": gnn.sage_forward_sampled}[case]
+    mask = batch.get("node_mask", batch["labels"] >= 0)
+    return (lambda p: fwd(p, batch, cfg),
+            lambda out: gnn.node_classification_loss(out, batch["labels"],
+                                                     mask)[0])
+
+
+def inplace_trainer(params, opt_cfg):
+    """A training step over ``params`` (a tree of float32 tensors, made
+    leaves that require a gradient, each with a zero ``.grad``):
+    ``step(loss_fn)`` runs ``loss_fn(params)``'s backward and the
+    in-place AdamW step (``apply_updates_``), zeroes the gradients, and
+    returns ``(loss, metrics)``."""
+    import torch
+    from repro_torch.optim import adamw
+    leaves = adamw._leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = torch.zeros_like(p)
+    state = adamw.init_state(params)
+
+    def step(loss_fn):
+        loss = loss_fn(params)
+        loss.backward()
+        m = adamw.apply_updates_(params, adamw._map(lambda p: p.grad, params),
+                                 state, opt_cfg)
+        for p in leaves:
+            p.grad.zero_()
+        return loss.detach(), m
+
+    return step
+
+
+def timed_steps(step, loss_fn, n):
+    """``n`` calls of ``step(loss_fn)``, each between CUDA events: the
+    losses, the metrics and the milliseconds of each."""
+    import torch
+    losses, metrics, ms = [], [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, m = step(loss_fn)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        metrics.append(m)
+    return losses, metrics, ms
+
+
+def near(got, want, rtol):
+    """Every element of ``got`` within ``rtol`` times ``want``'s largest
+    magnitude; returns ``(ok, max abs err, that bound)``."""
+    import numpy as np
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max()) if want.size else 0.0
+    tol = rtol * float(np.abs(want).max())
+    return got.shape == want.shape and err <= tol, err, tol
+
+
+def gnn_smoke_phase(dev):
+    """(l1): the three architectures' smoke configs at float32 (four
+    cases: GraphSAGE full-graph and on a fanout block) against
+    :data:`GNN_REFERENCE`."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import gnn, recsys
+    from repro_torch.models.common import params_from_reference
+    from repro_torch.optim import adamw
+    opt_cfg = adamw.AdamWConfig(**GNN_OPT)
+    for case in GNN_CASES:
+        arch = "graphsage-reddit" if case == "graphsage-sampled" else case
+        cfg = configs.get_arch(arch).smoke_config
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in gnn_smoke_batch(case, cfg).items()}
+        mod = recsys if case == "xdeepfm" else gnn
+        params = params_from_reference(mod.numpy_params(cfg, GNN_SEED),
+                                       device=dev)
+        forward, loss_of = gnn_model(case, cfg, batch)
+        with torch.no_grad():
+            logits = forward(params).cpu().numpy()
+            scores = None if case != "xdeepfm" else recsys.retrieval_scores(
+                params, batch["ids"][:1], cfg)[0].cpu().numpy()
+        step = inplace_trainer(params, opt_cfg)
+        losses, metrics, _ = timed_steps(step, lambda p: loss_of(forward(p)),
+                                         GNN_STEPS)
+        want = GNN_REFERENCE[case]
+        ok, err, tol = near(logits.reshape(-1), want["logits"], TRAIN_RTOL)
+        scalars = {"loss": losses[0],
+                   "grad_norm": float(metrics[0]["grad_norm"])}
+        ok = ok and all(math.isclose(scalars[k], want[k],
+                                     rel_tol=TRAIN_RTOL) for k in scalars)
+        ok = ok and np.allclose(losses, want["losses"], rtol=TRAIN_RTOL,
+                                atol=0)
+        note = ""
+        if scores is not None:
+            s_ok, s_err, _ = near(scores[:16], want["scores_head"],
+                                  TRAIN_RTOL)
+            norm = float(np.linalg.norm(scores.astype(np.float64)))
+            ok = ok and s_ok and math.isclose(norm, want["scores_norm"],
+                                              rel_tol=TRAIN_RTOL)
+            note = (f"; retrieval scores {scores.shape}, norm {norm!r} "
+                    f"(reference {want['scores_norm']!r})")
+        check(ok, f"(l1) {case}: logits err {err} (bound {tol}), "
+                  f"{scalars}, losses {losses}; reference {want}")
+        print(f"(l1) {case} ({cfg.name}): logits {logits.shape} within "
+              f"{err:.3e} of the reference (bound {tol:.3e}), loss "
+              f"{scalars['loss']!r}, grad norm {scalars['grad_norm']!r}, "
+              f"{GNN_STEPS} steps' losses {losses} (rtol {TRAIN_RTOL})"
+              f"{note}", flush=True)
+
+
+def cora_inputs(dev):
+    """(l2)'s config, padded batch (numpy, and as tensors on ``dev``) and
+    parameters (from a generator on ``dev``)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.graphs.datasets import random_edges
+    from repro_torch.graphs.format import pad_graph_batch
+    from repro_torch.models import gnn
+    cfg = configs.get_arch("gcn-cora").config
+    check((cfg.d_in, cfg.n_classes) == (CORA_FEAT, CORA_CLASSES),
+          f"(l2) {cfg}")
+    rng = np.random.default_rng(GNN_SEED)
+    edges = random_edges(CORA_NODES, CORA_EDGES, seed=GNN_SEED)
+    host = pad_graph_batch(
+        rng.normal(size=(CORA_NODES, CORA_FEAT)).astype(np.float32), edges,
+        rng.integers(0, CORA_CLASSES, CORA_NODES), pad_multiple=512)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    gen = torch.Generator(device=dev).manual_seed(GNN_SEED)
+    return cfg, host, batch, gnn.init_gcn_params(cfg, gen)
+
+
+def gnn_cora_phase(dev, card):
+    """(l2): gcn-cora at full_graph_sm, synthetic features and labels;
+    the logits against the port on the CPU, the forward and a training
+    step timed."""
+    import numpy as np
+    import torch
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    cfg, host, batch, params = cora_inputs(dev)
+    with torch.no_grad():
+        logits = gnn.gcn_forward(params, batch, cfg)
+        on_cpu = gnn.gcn_forward(adamw._map(torch.Tensor.cpu, params),
+                                 {k: torch.from_numpy(v)
+                                  for k, v in host.items()}, cfg)
+        fwd_ms = cuda_ms(lambda: gnn.gcn_forward(params, batch, cfg))
+    ok, err, tol = near(logits.cpu().numpy(), on_cpu.numpy(), TRAIN_RTOL)
+    check(ok and bool(torch.isfinite(logits).all()),
+          f"(l2) logits on the card vs the CPU: err {err} (bound {tol})")
+    _, loss_of = gnn_model("gcn-cora", cfg, batch)
+    step = inplace_trainer(params, adamw.AdamWConfig(
+        peak_lr=GNN_FULL_LR, warmup_steps=1, total_steps=GNN_FULL_STEPS))
+    losses, _, ms = timed_steps(
+        step, lambda p: loss_of(gnn.gcn_forward(p, batch, cfg)),
+        GNN_FULL_STEPS)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"(l2) losses {losses}")
+    print(f"(l2) gcn-cora full_graph_sm: {CORA_NODES} nodes, {CORA_EDGES} "
+          f"edges (padded to {host['node_mask'].size}, "
+          f"{host['edge_mask'].size}), {CORA_FEAT} features, "
+          f"{CORA_CLASSES} classes; logits {tuple(logits.shape)} within "
+          f"{err:.3e} of the port on the CPU (bound {tol:.3e}); losses "
+          f"{losses}; {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"time (l2) gcn-cora full_graph_sm: forward {fwd_ms:.3f} ms "
+          f"(median of {REPEATS}), training step (forward, backward, "
+          f"in-place AdamW) {statistics.median(ms):.3f} ms (median of "
+          f"{GNN_FULL_STEPS}; min {min(ms):.3f}, max {max(ms):.3f}), CUDA "
+          f"events, on {card}", flush=True)
+
+
+def reddit_graph(dev):
+    """(l3)'s graph on the device: ``REDDIT_ROWS`` undirected edge rows
+    drawn uniformly (``random_edges``' Python set loop cannot draw 5.7e7
+    in a run's time: pairs are drawn in bulk with numpy, self-loops
+    dropped, repeats kept), ``to_csr``'s int32 ``indptr`` and
+    ``indices``, float32 features and int32 labels from a CUDA
+    generator."""
+    import numpy as np
+    import torch
+    from repro_torch.graphs.datasets import to_csr
+    rng = np.random.default_rng(GNN_SEED)
+    pairs = rng.integers(0, REDDIT_NODES, (REDDIT_ROWS + REDDIT_ROWS // 1000,
+                                           2), dtype=np.int32)
+    pairs = pairs[pairs[:, 0] != pairs[:, 1]][:REDDIT_ROWS]
+    check(pairs.shape[0] == REDDIT_ROWS, f"(l3) {pairs.shape} edge rows")
+    indptr, indices = to_csr(pairs, REDDIT_NODES)
+    del pairs
+    gen = torch.Generator(device=dev).manual_seed(GNN_SEED)
+    feats = torch.randn((REDDIT_NODES, REDDIT_FEAT), generator=gen,
+                        device=dev)
+    labels = torch.randint(0, REDDIT_CLASSES, (REDDIT_NODES,),
+                           generator=gen, device=dev, dtype=torch.int32)
+    return (torch.from_numpy(indptr).to(dev),
+            torch.from_numpy(indices).to(dev), feats, labels, gen)
+
+
+def check_adjacent(indptr, indices, seeds, nbr, mask):
+    """On the device: every unmasked ``nbr[b, j]`` lies in seed ``b``'s
+    CSR row, and seeds with neighbours have no masked slot."""
+    import torch
+    start = indptr[seeds.long()].long()
+    deg = indptr[seeds.long() + 1].long() - start
+    span = torch.arange(int(deg.max()), device=deg.device)
+    valid = span[None] < deg[:, None]
+    adj = indices[torch.where(valid, start[:, None] + span[None], 0)]
+    hit = ((adj[:, None, :] == nbr[:, :, None]) & valid[:, None, :]).any(-1)
+    return bool(((hit | ~mask).all() & (mask.all(-1) == (deg > 0)).all())
+                .item())
+
+
+def gnn_reddit_phase(dev, card):
+    """(l3): graphsage-reddit at minibatch_lg on a Reddit-sized graph on
+    the device: sampling, the forward and a training step timed apart;
+    the first seeds' samples held to the CSR."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.graphs.sampler import (sample_fanout_batch,
+                                            sample_neighbors)
+    from repro_torch.models import gnn
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    cfg = configs.get_arch("graphsage-reddit").config
+    cfg = dataclasses.replace(cfg, d_in=REDDIT_FEAT, n_classes=REDDIT_CLASSES)
+    indptr, indices, feats, labels, gen = reddit_graph(dev)
+    check(int(indptr[-1]) == indices.numel() == 2 * REDDIT_ROWS,
+          f"(l3) CSR of {indices.numel()} entries")
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    seeds = torch.randperm(REDDIT_NODES, generator=gen, device=dev)[
+        :REDDIT_SEEDS].to(torch.int32)
+
+    def sample():
+        return sample_fanout_batch(indptr, indices, feats, labels, seeds,
+                                   gen, REDDIT_FANOUT)
+
+    batch = sample()
+    nbr, mask = sample_neighbors(indptr, indices, seeds[:REDDIT_CHECKED],
+                                 REDDIT_FANOUT[0], gen)
+    check(check_adjacent(indptr, indices, seeds[:REDDIT_CHECKED], nbr, mask),
+          "(l3) a sampled neighbour is not adjacent to its seed")
+    sample_ms = cuda_ms(sample)
+    params = gnn.init_sage_params(cfg, gen)
+    with torch.no_grad():
+        logits = gnn.sage_forward_sampled(params, batch, cfg)
+        fwd_ms = cuda_ms(lambda: gnn.sage_forward_sampled(params, batch, cfg))
+    check(tuple(logits.shape) == (REDDIT_SEEDS, REDDIT_CLASSES)
+          and bool(torch.isfinite(logits).all()), f"(l3) logits {logits}")
+    _, loss_of = gnn_model("graphsage-sampled", cfg, batch)
+    step = inplace_trainer(params, adamw.AdamWConfig(
+        peak_lr=GNN_FULL_LR, warmup_steps=1, total_steps=GNN_FULL_STEPS))
+    losses, _, ms = timed_steps(
+        step, lambda p: loss_of(gnn.sage_forward_sampled(p, batch, cfg)),
+        GNN_FULL_STEPS)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"(l3) losses {losses}")
+    f1, f2 = REDDIT_FANOUT
+    print(f"(l3) graphsage-reddit minibatch_lg: {REDDIT_NODES:,} nodes, "
+          f"{indices.numel():,} CSR entries ({REDDIT_ROWS:,} undirected "
+          f"rows), {REDDIT_FEAT} features, {REDDIT_CLASSES} classes; CSR "
+          f"{(indptr.numel() + indices.numel()) * 4 / 1e6:.0f} MB and "
+          f"features {feats.numel() * 4 / 1e6:.0f} MB on the card, made in "
+          f"{made_s:.2f} s; {REDDIT_SEEDS} seeds, fanout {f1}-{f2}: every "
+          f"unmasked neighbour of the first {REDDIT_CHECKED} seeds adjacent; "
+          f"losses {losses}", flush=True)
+    print(f"time (l3) graphsage-reddit minibatch_lg: sampling "
+          f"{sample_ms:.3f} ms, forward {fwd_ms:.3f} ms (medians of "
+          f"{REPEATS}), training step {statistics.median(ms):.3f} ms "
+          f"(median of {GNN_FULL_STEPS}; min {min(ms):.3f}, max "
+          f"{max(ms):.3f}), CUDA events, on {card}", flush=True)
+    del indptr, indices, feats, labels, batch, params, step
+    torch.cuda.empty_cache()
+
+
+def xdeepfm_phase(dev, card):
+    """(l4): xdeepfm at its published config (91,020,160 table rows)
+    initialised on the card: serve_p99, serve_bulk (the CIN in chunks),
+    retrieval_cand and :data:`XDFM_STEPS` in-place training steps at
+    train_batch on ``ClickLogStream`` batches."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import ClickLogStream
+    from repro_torch.models import recsys
+    from repro_torch.optim import adamw
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = configs.get_arch("xdeepfm").config
+    params = recsys.init_xdeepfm_params(
+        cfg, torch.Generator(device=dev).manual_seed(GNN_SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in adamw._leaves(params))
+    print(f"(l4) xdeepfm: {cfg.n_fields} fields, {cfg.total_vocab:,} table "
+          f"rows at embed_dim {cfg.embed_dim}, CIN {tuple(cfg.cin_layers)}, "
+          f"MLP {tuple(cfg.mlp_dims)}, {cfg.n_items:,} items: {n_params:,} "
+          f"float32 parameters "
+          f"({torch.cuda.memory_allocated() - held:,} bytes), made in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    def ids_of(batch_size, seed):
+        b = ClickLogStream(cfg.field_vocabs, batch_size,
+                           seed=seed).next_batch()
+        return (torch.from_numpy(b["ids"]).to(dev),
+                torch.from_numpy(b["labels"]).to(dev))
+
+    ids, _ = ids_of(XDFM_BULK, GNN_SEED)
+    p99 = ids[:XDFM_P99]
+    with torch.no_grad():
+        bulk = recsys.xdeepfm_logits(params, ids, cfg)
+        small = recsys.xdeepfm_logits(params, p99, cfg)
+        scores = recsys.retrieval_scores(params, ids[:1], cfg)
+        u = recsys._dnn(recsys._lookup(params, ids[:1], cfg), params, cfg) \
+            @ params["user_proj"]
+        scores64 = u.double() @ params["item_embed"].double().T
+        times = {"serve_p99": cuda_ms(
+                     lambda: recsys.xdeepfm_logits(params, p99, cfg)),
+                 "serve_bulk": cuda_ms(
+                     lambda: recsys.xdeepfm_logits(params, ids, cfg)),
+                 "retrieval_cand": cuda_ms(
+                     lambda: recsys.retrieval_scores(params, ids[:1], cfg))}
+    same, same_err, same_tol = near(small.cpu().numpy(),
+                                    bulk[:XDFM_P99].cpu().numpy(),
+                                    XDFM_SAME_RTOL)
+    s_ok, s_err, s_tol = near(scores.cpu().numpy(), scores64.cpu().numpy(),
+                              XDFM_SCORES_RTOL)
+    check(same and s_ok and tuple(scores.shape) == (1, cfg.n_items)
+          and bool(torch.isfinite(bulk).all())
+          and bool(torch.isfinite(scores).all()),
+          f"(l4) serve_p99 vs serve_bulk err {same_err} (bound {same_tol}); "
+          f"scores vs float64 err {s_err} (bound {s_tol})")
+    serve_peak = torch.cuda.max_memory_allocated()
+    del bulk, scores64
+    ids, labels = ids_of(XDFM_TRAIN, GNN_SEED + 1)
+    step = inplace_trainer(params, adamw.AdamWConfig(
+        peak_lr=XDFM_LR, warmup_steps=1, total_steps=XDFM_STEPS))
+    losses, metrics, ms = timed_steps(
+        step, lambda p: recsys.bce_loss(recsys.xdeepfm_logits(p, ids, cfg),
+                                        labels), XDFM_STEPS)
+    norms = [float(m["grad_norm"]) for m in metrics]
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses + norms)
+          and losses[1] < losses[0], f"(l4) losses {losses}, norms {norms}")
+    chunk = recsys.cin_chunk_rows(cfg)
+    print(f"(l4) serve_p99's {XDFM_P99} logits within {same_err:.3e} of the "
+          f"same rows of serve_bulk's {XDFM_BULK:,} (bound {same_tol:.3e}); "
+          f"retrieval scores (1, {cfg.n_items:,}) within {s_err:.3e} of a "
+          f"float64 recount (bound {s_tol:.3e}); {XDFM_STEPS} train_batch "
+          f"steps of {XDFM_TRAIN:,} rows on one batch: losses {losses}, grad "
+          f"norms {norms}; the CIN in chunks of {chunk:,} rows", flush=True)
+    print(f"time (l4) xdeepfm: serve_p99 {times['serve_p99']:.3f} ms, "
+          f"serve_bulk {times['serve_bulk']:.3f} ms, retrieval_cand "
+          f"{times['retrieval_cand']:.3f} ms (medians of {REPEATS}), "
+          f"train_batch step (forward, backward, in-place AdamW) "
+          f"{statistics.median(ms):.3f} ms (min {min(ms):.3f}, max "
+          f"{max(ms):.3f} of {XDFM_STEPS}), CUDA events; peak memory "
+          f"allocated {serve_peak / 2 ** 30:.3f} GiB serving and "
+          f"{peak / 2 ** 30:.3f} GiB training ({held / 2 ** 30:.3f} GiB "
+          f"held by earlier phases), on {card}", flush=True)
+    del params, step, ids, labels
+    torch.cuda.empty_cache()
+
+
+def gnn_phase(dev, card):
+    """(l): (l1)-(l4), float32 products with TF32 off, with every kernel's
+    launch count set to 0 before and read after: no kernel of the port
+    lies on these paths.  Returns those counts."""
+    import torch
+    from repro_torch.kernels.crossing_angle_sum import crossing_angle_stats
+    from repro_torch.kernels.occlusion_pairs import (occlusion_pairs,
+                                                     occlusion_pairs_rows)
+    from repro_torch.kernels.segment_crossing import (crossing_count,
+                                                      crossing_count_rows)
+    from repro_torch.kernels.strip_reversal import strip_reversal_rows
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    counters = {"strip_reversal": (strip_reversal_rows, "LAUNCHES",
+                                   "LAUNCHES_BF16"),
+                "occlusion_pairs": (occlusion_pairs, "LAUNCHES",
+                                    "LAUNCHES_BF16"),
+                "occlusion_pairs_rows": (occlusion_pairs_rows, "LAUNCHES",
+                                         "LAUNCHES_BF16"),
+                "segment_crossing": (crossing_count, "LAUNCHES"),
+                "segment_crossing_rows": (crossing_count_rows, "LAUNCHES"),
+                "crossing_angle_sum": (crossing_angle_stats, "LAUNCHES")}
+    for fn, *names in counters.values():
+        for name in names:
+            setattr(fn, name, 0)
+    t0 = time.perf_counter()
+    check(GNN_REFERENCE is not None, "(l) GNN_REFERENCE is not set")
+    gnn_smoke_phase(dev)
+    gnn_cora_phase(dev, card)
+    gnn_reddit_phase(dev, card)
+    xdeepfm_phase(dev, card)
+    launches = {k: sum(getattr(fn, name) for name in names)
+                for k, (fn, *names) in counters.items()}
+    check(not any(launches.values()), f"(l) kernel launches {launches}")
+    print(f"(l) kernel launches in (l1)-(l4): {launches}", flush=True)
+    print(f"time (l) the GNN and recsys phase: "
+          f"{time.perf_counter() - t0:.2f} s (wall)", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--rank"]:
@@ -3534,6 +4382,8 @@ def main() -> int:
     lm_train_full_phase(dev, card)
     print(f"time (k) the LM training phase: {time.perf_counter() - t0:.2f} "
           f"s (wall)", flush=True)
+    # (l) the GNN and recsys families; (k2)'s model and state are freed
+    gnn_launches = gnn_phase(dev, card)
 
     # -- 4. timings --------------------------------------------------------
     path_ms = {
@@ -3724,10 +4574,13 @@ def main() -> int:
             bound_ms=e["bound_ms"], bound_by=max(e["by"], key=e["by"].get),
             library_ms=None))
     kernels += bf16_entries
+    for k in kernels:
+        # no kernel runs on (l): its launches, counted in that run
+        k["launches_l"] = gnn_launches.get(k["name"], 0)
     print("kernel times are summed over every launch of one pass of "
           "(a)-(g), the row-range entries over (h)'s launches (parent and "
           "ranks), the bfloat16 entries over (i)'s; launches are counted "
-          "in those runs (strip_reversal's "
+          "in those runs, launches_l in (l)'s (strip_reversal's "
           f"{h_rev_launches} launches in (h) are checked there and not "
           "added); ms is the kernel alone on the device (median), "
           "wrapper_ms the wrapper's call", flush=True)

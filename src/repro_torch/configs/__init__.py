@@ -3,9 +3,10 @@ architecture's published config, a reduced smoke config and its shape
 set.
 
 ``get_arch(arch_id)`` -> :class:`ArchSpec`; ``list_archs()`` -> ids.
-The five LM architectures are ported; the GNN and recsys ids are listed
-as in the reference, and :func:`get_arch` raises ``NotImplementedError``
-for them until their slice of the port (ROADMAP queue 1, item 6).
+The five LM architectures, gcn-cora, graphsage-reddit and xdeepfm are
+ported; the equivariant ids (nequip, equiformer-v2) are listed as in the
+reference, and :func:`get_arch` raises ``NotImplementedError`` for them
+until their slice of the port (ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -33,6 +34,9 @@ _MODULES = {
     "qwen3-4b": "qwen3_4b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "gcn-cora": "gcn_cora",
+    "graphsage-reddit": "graphsage_reddit",
+    "xdeepfm": "xdeepfm",
 }
 
 LM_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
@@ -56,8 +60,8 @@ def get_arch(arch_id: str) -> ArchSpec:
         raise KeyError(arch_id)
     if arch_id not in _MODULES:
         raise NotImplementedError(
-            f"{arch_id!r} is a GNN or recsys architecture; its family is "
-            "not ported to repro_torch yet (ROADMAP queue 1, item 6)")
+            f"{arch_id!r} is an equivariant GNN; its family is not ported "
+            "to repro_torch yet (ROADMAP queue 1, item 4)")
     return importlib.import_module(
         f"repro_torch.configs.{_MODULES[arch_id]}").SPEC
 
@@ -68,7 +72,7 @@ def list_archs():
 
 def all_cells(include_skipped: bool = False):
     """Every (arch, shape, skip reason) cell of the ported architectures
-    (the LM family so far)."""
+    (all but the equivariant family so far)."""
     cells = []
     for arch_id in ARCH_IDS:
         if arch_id not in _MODULES:

@@ -24,7 +24,8 @@ group has identity collectives throughout.
 ``merge_decode_attention`` is decode attention against a KV cache
 sharded on its sequence axis over the mesh (the LM serving path):
 local softmax statistics merged by all-reduces.
-``sharded_embedding_lookup`` waits for the recsys slice of the port.
+``sharded_embedding_lookup`` is the recsys path's range-partitioned
+table lookup: each rank gathers the ids it owns, the ranks sum.
 """
 
 from __future__ import annotations
@@ -160,3 +161,29 @@ def merge_decode_attention(mesh, q, k_cache, v_cache, pos, *,
     o_star = psum(mesh, o * corr[..., None].to(o.dtype))
     return o_star / torch.clamp_min(l_star, 1e-30)[..., None].to(o.dtype)
 
+
+def sharded_embedding_lookup(mesh, table, ids):
+    """Range-partitioned lookup: ``table`` ``(V, d)`` sharded on rows over
+    the ranks of a one-axis mesh, ``ids`` ``(...,)`` replicated.  Returns
+    ``(..., d)``, the same on every rank.
+
+    Rank ``r`` takes rows ``[r V/n, (r+1) V/n)`` of ``table`` (the
+    reference's ``shard_map`` in-spec; a rank reads only its slice),
+    gathers the ids in that range, zeroes the others, and the ranks sum
+    (:func:`psum`).  ``V`` must split evenly over the ranks.  Unlike the
+    reference, which replicates over a mesh's other axes, a mesh of two
+    axes raises."""
+    if len(mesh.axis_names) != 1:
+        raise ValueError(f"sharded_embedding_lookup shards over a one-axis "
+                         f"mesh; the mesh has {mesh.axis_names}")
+    n_shard, V = mesh.size, table.shape[0]
+    if V % n_shard:
+        raise ValueError(f"a table of {V} rows does not split over "
+                         f"{n_shard} ranks")
+    per = V // n_shard
+    lo = mesh.rank * per
+    local = ids.long() - lo
+    in_range = (local >= 0) & (local < per)
+    rows = table[lo:lo + per][torch.clamp(local, 0, per - 1)]
+    rows = torch.where(in_range[..., None], rows, torch.zeros_like(rows))
+    return psum(mesh, rows)

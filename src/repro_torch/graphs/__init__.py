@@ -1,1 +1,2 @@
-# Synthetic graphs and layouts (numpy copies of repro.graphs).
+# Synthetic graphs, layouts and graph batches (numpy copies of
+# repro.graphs) and the neighbour sampler on PyTorch.

@@ -1,6 +1,8 @@
 """Shared model building blocks (counterpart of
-:mod:`repro.models.common`): RMS norm, SwiGLU, rotary embeddings and the
-softmax cross entropy, as plain PyTorch functions of tensors.
+:mod:`repro.models.common`): parameter draws from a ``torch.Generator``
+(:func:`truncated_normal`, :func:`dense_init`), RMS norm, SwiGLU, rotary
+embeddings and the softmax cross entropy, as plain PyTorch functions of
+tensors.
 
 Each keeps the reference's numerics: the norm and the rotary
 embedding compute in float32 and return the input's dtype, the loss
@@ -16,9 +18,52 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core.engine import resolve_device
+
+
+def truncated_normal(generator: torch.Generator, shape, scale):
+    """A float32 ``shape`` tensor: ``scale`` times a standard normal
+    truncated to [-2, 2] (no variance rescaling), drawn from ``generator``
+    on its device -- the distribution of the reference's
+    ``truncated_normal``, drawn as :meth:`Transformer.init_params` draws
+    its weights.  In place, so a table of ``n`` elements costs ``4 n``
+    bytes."""
+    x = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return x.mul_(scale)
+
+
+def dense_init(generator: torch.Generator, d_in, d_out):
+    """A float32 ``(d_in, d_out)`` weight: :func:`truncated_normal` at
+    scale ``(1 / d_in) ** 0.5``."""
+    return truncated_normal(generator, (d_in, d_out), (1.0 / d_in) ** 0.5)
+
+
+def numpy_truncated(rng: np.random.Generator, shape, scale):
+    """The numpy counterpart of :func:`truncated_normal` that the models'
+    ``numpy_params`` draw (one set of numbers for both packages): a
+    float32 standard normal clipped to [-2, 2], times ``scale``."""
+    return (np.clip(rng.standard_normal(shape, np.float32), -2.0, 2.0)
+            * np.float32(scale)).astype(np.float32)
+
+
+def params_from_reference(tree, *, device=None):
+    """A parameter pytree of the reference (dicts and lists of arrays, as
+    its GNN and recsys models keep them) as the same tree of float32
+    tensors on ``device`` (CUDA unless the caller passes another)."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device=dev)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_reference(v, device=dev) for v in tree]
+    return torch.tensor(np.asarray(tree, np.float32), device=dev)
 
 
 def rms_norm(x, scale, eps: float = 1e-6):

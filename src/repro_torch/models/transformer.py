@@ -230,8 +230,7 @@ def numpy_params(cfg: TransformerConfig, seed: int) -> dict:
         else:
             kind, arg = init
             scale = arg ** -0.5 if kind == "dense" else arg
-            a = (np.clip(rng.standard_normal(shape, np.float32), -2.0, 2.0)
-                 * np.float32(scale)).astype(np.float32)
+            a = common.numpy_truncated(rng, shape, scale)
             if name == "embed":
                 a[cfg.vocab_size:] = 0.0
             elif name == "unembed":

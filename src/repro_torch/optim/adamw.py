@@ -1,9 +1,10 @@
 """AdamW, its cosine schedule and gradient utilities (counterpart of
 :mod:`repro.optim.adamw`).
 
-Plain functions over (nested) dicts of tensors, the reference's pytrees:
-optimizer state is congruent with the params, global-norm clipping,
-cosine schedule with warmup, and the per-chunk int8 gradient compression.
+Plain functions over (nested) dicts and lists of tensors, the
+reference's pytrees: optimizer state is congruent with the params,
+global-norm clipping, cosine schedule with warmup, and the per-chunk
+int8 gradient compression.
 :func:`apply_updates` is functional, as the reference's;
 :func:`apply_updates_` computes the same step in place, block by block
 (a trainer at full width has no room for a second copy of its
@@ -47,18 +48,22 @@ def _is_enc(x):
 
 
 def _map(fn, *trees, is_leaf=None):
-    """``fn`` over the leaves of congruent dicts (keys in sorted order, as
-    JAX flattens a dict)."""
+    """``fn`` over the leaves of congruent dicts and lists (dict keys in
+    sorted order, as JAX flattens a dict; lists in order)."""
     first = trees[0]
     if isinstance(first, dict) and not (is_leaf and is_leaf(first)):
         return {k: _map(fn, *(t[k] for t in trees), is_leaf=is_leaf)
                 for k in sorted(first)}
+    if isinstance(first, list):
+        return [_map(fn, *leaves, is_leaf=is_leaf) for leaves in zip(*trees)]
     return fn(*trees)
 
 
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in _leaves(t)]
     return [tree]
 
 

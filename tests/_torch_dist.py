@@ -450,7 +450,9 @@ def distributed(world):
     pairwise drivers on a 2-D mesh where the ranks allow one), plus the
     parity matrix's three mesh cells and the pairwise drivers on every
     family, the near-parallel layouts through the distributed front door,
-    the serving mesh policy and a distributed search step."""
+    the serving mesh policy, a distributed search step, the
+    range-partitioned embedding lookup and, at 4 ranks,
+    ``examples/torch/distributed_eval.py``'s counts."""
     import torch
 
     from repro_torch.api import Evaluator
@@ -458,6 +460,7 @@ def distributed(world):
     from repro_torch.core import grid as gridlib
     from repro_torch.core.keys import EvalConfig
     from repro_torch.distributed import pairwise
+    from repro_torch.distributed.collectives import sharded_embedding_lookup
     from repro_torch.distributed.compat import make_mesh
     from repro_torch.distributed.gridded import sharded_reversal_stats
     from repro_torch.kernels.fixtures import near_parallel_layouts, \
@@ -519,7 +522,36 @@ def distributed(world):
     out["evaluator_mesh"] = Evaluator(
         EvalConfig(backend="distributed"), device=dev)._mesh().size
     out["search"] = search_twin(mesh)
+
+    table, ids = embedding_inputs()
+    out["embedding_lookup"] = sharded_embedding_lookup(
+        make_mesh((world,), ("model",), device=dev), torch.from_numpy(table),
+        torch.from_numpy(ids)).tolist()
+    if world == 4:
+        # examples/torch/distributed_eval.py on the same (2, 2) mesh it
+        # makes at 4 ranks
+        out["distributed_eval"] = distributed_eval_example().evaluate(
+            mesh2, dev, lambda line: None)
     return out
+
+
+def embedding_inputs():
+    """``(table (64, 8) float32, ids (5, 3) int32)`` from seed 23, the
+    shapes of ``tests/test_distributed.py``'s lookup check."""
+    rng = np.random.default_rng(23)
+    return (rng.normal(size=(64, 8)).astype(np.float32),
+            rng.integers(0, 64, (5, 3)).astype(np.int32))
+
+
+def distributed_eval_example():
+    """``examples/torch/distributed_eval.py`` as a module (its ranks are
+    not started: the caller runs its ``evaluate`` on its own mesh)."""
+    import importlib.util
+    path = ROOT / "examples" / "torch" / "distributed_eval.py"
+    spec = importlib.util.spec_from_file_location("distributed_eval", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def search_twin(mesh):

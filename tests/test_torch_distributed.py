@@ -22,20 +22,29 @@ at 4 ranks: the drivers flatten its axes):
 * the serving mesh policy caps and trims the group; a distributed search
   equals the single-host search from the same restarts.
 
-``merge_decode_attention`` and ``sharded_embedding_lookup`` (the last two
-checks of ``tests/test_distributed.py``) belong to the seed-template
-substrate, which is not ported (ROADMAP queue 1 item 6).
+* ``sharded_embedding_lookup`` on a ``model`` axis of every rank equals
+  the reference's ``jnp.take`` of the whole table (the last check of
+  ``tests/test_distributed.py``; ``merge_decode_attention``, the one
+  before it, is held in ``tests/test_torch_lm.py``);
+* ``examples/torch/distributed_eval.py``'s counts at 4 ranks equal the
+  reference's oracles, as ``examples/distributed_eval.py`` checks its
+  own.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import repro.api as ref_api
 from repro.core import grid as ref_grid
 from repro.core.crossing import bucket_reversal_stats
+from repro.graphs.datasets import random_edges as ref_random_edges
+from repro.graphs.layouts import random_layout as ref_random_layout
 from repro.kernels import ref as ref_oracles
 import _torch_dist as dist_
+from repro_torch.distributed.collectives import sharded_embedding_lookup
+from repro_torch.distributed.compat import make_mesh
 from repro_torch.kernels.fixtures import parity_family
 from test_torch_kernels import NEAR_PARALLEL_REFERENCE, check_near_parallel
 
@@ -86,6 +95,13 @@ def ref(started):
         out[kind] = (ref_api.Evaluator(ref_api.EvalConfig(
             radius=dist_.RADIUS, n_strips=dist_.N_STRIPS)).evaluate(
             fpos, fedges), oracles(fpos, fedges, dist_.RADIUS))
+    table, ids = dist_.embedding_inputs()
+    out["take"] = np.asarray(jnp.take(jnp.asarray(table), jnp.asarray(ids),
+                                      axis=0))
+    # examples/distributed_eval.py's graph and radius
+    out["distributed_eval"] = oracles(
+        ref_random_layout(1500, seed=0), ref_random_edges(1500, 3000, seed=0),
+        1.0)
     return out
 
 
@@ -171,3 +187,35 @@ def test_distributed_search_matches_single_host(runs, world):
                                rtol=RTOL)
     np.testing.assert_allclose(dist["losses"][1:], single["losses"][1:],
                                rtol=RTOL)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_embedding_lookup_matches_take(runs, ref, world):
+    """Rows range-partitioned over ``world`` ranks, gathered where owned
+    and summed: the single-device ``take`` of the whole table."""
+    np.testing.assert_allclose(runs[world]["embedding_lookup"], ref["take"],
+                               rtol=0, atol=1e-6)
+
+
+def test_sharded_embedding_lookup_takes_a_one_axis_mesh():
+    """A mesh of two axes raises (the reference replicates over the
+    second; the port does not take one yet) instead of a wrong lookup."""
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    table, ids = dist_.embedding_inputs()
+    with pytest.raises(ValueError, match="one-axis mesh"):
+        sharded_embedding_lookup(mesh, torch.from_numpy(table),
+                                 torch.from_numpy(ids))
+
+
+def test_distributed_eval_example_matches_oracles(runs, ref):
+    """``examples/torch/distributed_eval.py`` on 4 gloo ranks (a ``(2,
+    2)`` mesh): its exact N_c (row-sharded and ring) and E_c equal the
+    reference's oracles, and the strip-sharded enhanced E_c plans without
+    overflow."""
+    out = runs[4]["distributed_eval"]
+    occ, cross = ref["distributed_eval"]
+    assert out["mesh"] == [2, 2]
+    assert out["node_occlusion"] == out["ring_node_occlusion"] == occ
+    assert out["edge_crossing"] == cross
+    assert out["overflow"] == 0
+    assert out["enhanced_edge_crossing"] > 0

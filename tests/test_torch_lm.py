@@ -43,6 +43,7 @@ from repro_torch.models import transformer as t_tf
 
 RTOL, ATOL = 1e-4, 1e-5
 LM_ARCHS = t_configs.ARCH_IDS[:5]
+PORTED_ARCHS = LM_ARCHS + ("gcn-cora", "graphsage-reddit", "xdeepfm")
 B, S, N_NEW = 2, 16, 4
 
 
@@ -101,10 +102,10 @@ def close(got, want, what):
 
 
 def test_configs_match_reference():
-    """Every LM arch's published and smoke configs field for field (the
-    dtype as its torch counterpart), their parameter counts, the shape
-    sets and skips, ``all_cells`` over the LM archs; a GNN or recsys id
-    raises, naming the queue item."""
+    """Every ported arch's published and smoke configs field for field
+    (the dtype as its torch counterpart), the LM configs' parameter
+    counts, the shape sets and skips, ``all_cells`` over the ported
+    archs; an equivariant id raises, naming the queue item."""
     assert t_configs.ARCH_IDS == ref_configs.ARCH_IDS
     assert (t_configs.LM_SHAPES, t_configs.GNN_SHAPES,
             t_configs.RECSYS_SHAPES) == (ref_configs.LM_SHAPES,
@@ -112,27 +113,35 @@ def test_configs_match_reference():
                                           ref_configs.RECSYS_SHAPES)
     assert t_configs.list_archs() == ref_configs.list_archs()
     dtypes = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}
-    for name in LM_ARCHS:
+    for name in PORTED_ARCHS:
         t, r = t_configs.get_arch(name), ref_configs.get_arch(name)
         assert (t.arch_id, t.family, tuple(t.shapes), dict(t.skips)) == \
             (r.arch_id, r.family, tuple(r.shapes), dict(r.skips))
         for tc, rc in ((t.config, r.config), (t.smoke_config,
                                               r.smoke_config)):
+            assert type(tc).__name__ == type(rc).__name__
             td, rd = dataclasses.asdict(tc), dataclasses.asdict(rc)
             assert dtypes[td.pop("dtype")] == rd.pop("dtype")
             assert td == rd, name
+            if t.family != "lm":
+                continue
             for model_axis in (1, 16):
                 assert dataclasses.asdict(tc.with_mesh(model_axis)) | {
                     "dtype": None} == dataclasses.asdict(
                     rc.with_mesh(model_axis)) | {"dtype": None}
             assert tc.param_count() == rc.param_count()
             assert tc.active_param_count() == rc.active_param_count()
-    lm = [c for c in ref_configs.all_cells(include_skipped=True)
-          if c[0] in LM_ARCHS]
-    assert t_configs.all_cells(include_skipped=True) == lm
-    assert t_configs.all_cells() == [c for c in lm if c[2] is None]
-    for name in t_configs.ARCH_IDS[5:]:
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    xt = t_configs.get_arch("xdeepfm").config
+    xr = ref_configs.get_arch("xdeepfm").config
+    assert (xt.n_fields, xt.total_vocab) == (xr.n_fields, xr.total_vocab) \
+        == (39, 91_020_160)
+    np.testing.assert_array_equal(xt.field_offsets, xr.field_offsets)
+    ported = [c for c in ref_configs.all_cells(include_skipped=True)
+              if c[0] in PORTED_ARCHS]
+    assert t_configs.all_cells(include_skipped=True) == ported
+    assert t_configs.all_cells() == [c for c in ported if c[2] is None]
+    for name in ("nequip", "equiformer-v2"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
             t_configs.get_arch(name)
 
 

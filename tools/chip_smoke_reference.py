@@ -34,6 +34,7 @@ Usage (from the repository root)::
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --bf16
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --lm
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --train
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --gnn
 
 ``--drag`` computes the constants of ``chip_smoke.py``'s phase (f), op by
 op: the reference's ``EvalSession(EvalConfig(radius=0.5, n_strips=512),
@@ -108,6 +109,16 @@ loss and grad norm per step; (k2a) qwen3-4b at its published width with
 jitted ``loss_fn``'s total and xent and the global norm of its gradient.
 About a minute of CPU and 15 GB (the 2-layer model's 0.96 B float32
 parameters, its gradient and their copies).
+
+``--gnn`` computes the constants of phase (l1), op by op: for each of
+``chip_smoke.GNN_CASES`` (gcn-cora and graphsage-reddit full-graph,
+graphsage-reddit on a fanout block, xdeepfm) at the smoke config,
+parameters from the port's numpy draw (``repro_torch.models.gnn`` /
+``.recsys`` ``numpy_params(cfg, GNN_SEED)``) and
+``chip_smoke.gnn_smoke_batch``'s inputs: the logits, the loss, the
+gradient's global norm, ``GNN_STEPS`` AdamW steps' losses
+(``AdamWConfig(**GNN_OPT)``), and xdeepfm's retrieval scores for the
+first row (the first 16 and the L2 norm).  About 40 s of CPU.
 
 ``--near-parallel`` runs the reference's engine on
 ``repro_torch.kernels.fixtures.near_parallel_layouts()`` (``RADIUS`` 2.0,
@@ -307,6 +318,68 @@ def compute_train():
                           tokens=float(mets["tokens"]),
                           grad_norm=float(adamw.global_norm(grads)),
                           seconds=time.perf_counter() - t0)
+    return out
+
+
+def compute_gnn():
+    """Phase (l1): the GNN and recsys smoke configs at float32, op by op
+    (the caller disables jit)."""
+    import jax.numpy as jnp
+
+    from repro import configs as ref_configs
+    from repro.models import gnn as ref_gnn
+    from repro.models import recsys as ref_recsys
+    from repro.optim import adamw
+    from repro_torch.models import gnn as t_gnn
+    from repro_torch.models import recsys as t_recsys
+    k = _smoke()
+
+    opt = adamw.AdamWConfig(**k.GNN_OPT)
+    out = {}
+    for case in k.GNN_CASES:
+        arch = "graphsage-reddit" if case == "graphsage-sampled" else case
+        cfg = ref_configs.get_arch(arch).smoke_config
+        batch = jax.tree.map(jnp.asarray, k.gnn_smoke_batch(case, cfg))
+        if case == "xdeepfm":
+            tree = t_recsys.numpy_params(cfg, k.GNN_SEED)
+
+            def forward(p):
+                return ref_recsys.xdeepfm_logits(p, batch["ids"], cfg)
+
+            def loss_of(o):
+                return ref_recsys.bce_loss(o, batch["labels"])
+        else:
+            tree = t_gnn.numpy_params(cfg, k.GNN_SEED)
+            fwd = {"gcn-cora": ref_gnn.gcn_forward,
+                   "graphsage-reddit": ref_gnn.sage_forward_full,
+                   "graphsage-sampled": ref_gnn.sage_forward_sampled}[case]
+            mask = batch.get("node_mask", batch["labels"] >= 0)
+
+            def forward(p):
+                return fwd(p, batch, cfg)
+
+            def loss_of(o):
+                return ref_gnn.node_classification_loss(
+                    o, batch["labels"], mask)[0]
+        params = jax.tree.map(jnp.asarray, tree)
+        entry = {"logits": np.asarray(forward(params)).reshape(-1).tolist()}
+        if case == "xdeepfm":
+            scores = np.asarray(ref_recsys.retrieval_scores(
+                params, batch["ids"][:1], cfg))[0]
+            entry["scores_head"] = scores[:16].tolist()
+            entry["scores_norm"] = float(np.linalg.norm(
+                scores.astype(np.float64)))
+        state, losses = adamw.init_state(params), []
+        for i in range(k.GNN_STEPS):
+            loss, grads = jax.value_and_grad(
+                lambda p: loss_of(forward(p)))(params)
+            if i == 0:
+                entry["loss"] = float(loss)
+                entry["grad_norm"] = float(adamw.global_norm(grads))
+            params, state, _ = adamw.apply_updates(params, grads, state, opt)
+            losses.append(float(loss))
+        entry["losses"] = losses
+        out[case] = entry
     return out
 
 
@@ -603,6 +676,8 @@ def main():
     ap.add_argument("--train", action="store_true",
                     help="phase (k): LM training, the smoke configs and "
                          "qwen3-4b at full width with 2 layers")
+    ap.add_argument("--gnn", action="store_true",
+                    help="phase (l1): the GNN and recsys smoke configs")
     ap.add_argument("--near-parallel", action="store_true",
                     help="the reference's jitted and op-by-op E_ca on the "
                          "near-parallel layouts")
@@ -610,6 +685,9 @@ def main():
     if args.bf16:
         with jax.disable_jit():
             out = {"eager": compute_bf16()}
+    elif args.gnn:
+        with jax.disable_jit():
+            out = compute_gnn()
     elif args.lm:
         out = compute_lm()
     elif args.train:

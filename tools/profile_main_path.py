@@ -32,9 +32,15 @@ and the device time by kind of kernel (matrix products, softmax,
 reductions, casts to bfloat16, copies and other casts, other
 elementwise).
 
+``--gnn`` profiles instead ``chip_smoke.py``'s (l2)-(l4): gcn-cora's
+forward and training step at full_graph_sm, graphsage-reddit's sampling,
+forward and training step at minibatch_lg, and xdeepfm's serve_p99,
+serve_bulk, retrieval_cand and a train_batch step (the last two
+calls also by kind of kernel).
+
 Usage (from the repository root, on a CUDA machine)::
 
-    python tools/profile_main_path.py [--train]
+    python tools/profile_main_path.py [--train | --gnn]
 """
 
 from __future__ import annotations
@@ -108,9 +114,91 @@ def train_profile(card):
 
     dev = torch.device("cuda")
     cfg, model, opt_state, batch, trainers = full_train_setup(dev)
-    events = profile(f"(k2) {cfg.name} training step, {cfg.n_layers} "
-                     f"layers", lambda: trainers[False](opt_state, batch),
-                     card, runs=1, top_n=20, width=200)
+    by_kind(profile(f"(k2) {cfg.name} training step, {cfg.n_layers} "
+                    f"layers", lambda: trainers[False](opt_state, batch),
+                    card, runs=1, top_n=20, width=200))
+
+
+def gnn_profile(card):
+    """``chip_smoke.py``'s (l2)-(l4) at their sizes, profiled: each
+    forward, each training step (the in-place trainer, losses not
+    read), (l3)'s sampling, and (l4)'s serving calls."""
+    import dataclasses
+
+    import torch
+    import chip_smoke as cs
+    from repro_torch import configs
+    from repro_torch.data.pipeline import ClickLogStream
+    from repro_torch.graphs.sampler import sample_fanout_batch
+    from repro_torch.models import gnn, recsys
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = adamw.AdamWConfig(peak_lr=cs.GNN_FULL_LR, warmup_steps=1)
+
+    cfg, _, batch, params = cs.cora_inputs(dev)
+    with torch.no_grad():
+        profile("(l2) gcn-cora forward",
+                lambda: gnn.gcn_forward(params, batch, cfg), card)
+    _, loss_of = cs.gnn_model("gcn-cora", cfg, batch)
+    step = cs.inplace_trainer(params, opt)
+    profile("(l2) gcn-cora training step", lambda: step(
+        lambda p: loss_of(gnn.gcn_forward(p, batch, cfg))), card)
+
+    cfg = dataclasses.replace(configs.get_arch("graphsage-reddit").config,
+                              d_in=cs.REDDIT_FEAT,
+                              n_classes=cs.REDDIT_CLASSES)
+    indptr, indices, feats, labels, gen = cs.reddit_graph(dev)
+    seeds = torch.randperm(cs.REDDIT_NODES, generator=gen, device=dev)[
+        :cs.REDDIT_SEEDS].to(torch.int32)
+
+    def sample():
+        return sample_fanout_batch(indptr, indices, feats, labels, seeds,
+                                   gen, cs.REDDIT_FANOUT)
+
+    profile("(l3) graphsage-reddit sampling", sample, card)
+    batch = sample()
+    params = gnn.init_sage_params(cfg, gen)
+    with torch.no_grad():
+        profile("(l3) graphsage-reddit forward",
+                lambda: gnn.sage_forward_sampled(params, batch, cfg), card)
+    _, loss_of = cs.gnn_model("graphsage-sampled", cfg, batch)
+    step = cs.inplace_trainer(params, opt)
+    profile("(l3) graphsage-reddit training step", lambda: step(
+        lambda p: loss_of(gnn.sage_forward_sampled(p, batch, cfg))), card)
+    del indptr, indices, feats, labels, batch, params, step
+
+    cfg = configs.get_arch("xdeepfm").config
+    params = recsys.init_xdeepfm_params(
+        cfg, torch.Generator(device=dev).manual_seed(cs.GNN_SEED))
+
+    def ids_of(n, seed):
+        b = ClickLogStream(cfg.field_vocabs, n, seed=seed).next_batch()
+        return (torch.from_numpy(b["ids"]).to(dev),
+                torch.from_numpy(b["labels"]).to(dev))
+
+    ids, _ = ids_of(cs.XDFM_BULK, cs.GNN_SEED)
+    with torch.no_grad():
+        profile(f"(l4) xdeepfm serve_p99 ({cs.XDFM_P99} rows)",
+                lambda: recsys.xdeepfm_logits(params, ids[:cs.XDFM_P99],
+                                              cfg), card)
+        by_kind(profile(f"(l4) xdeepfm serve_bulk ({cs.XDFM_BULK} rows)",
+                        lambda: recsys.xdeepfm_logits(params, ids, cfg),
+                        card, runs=1))
+        profile("(l4) xdeepfm retrieval_cand",
+                lambda: recsys.retrieval_scores(params, ids[:1], cfg), card)
+    ids, labels = ids_of(cs.XDFM_TRAIN, cs.GNN_SEED + 1)
+    step = cs.inplace_trainer(params, dataclasses.replace(
+        opt, peak_lr=cs.XDFM_LR))
+    by_kind(profile(f"(l4) xdeepfm train_batch step ({cs.XDFM_TRAIN} rows)",
+                    lambda: step(lambda p: recsys.bce_loss(
+                        recsys.xdeepfm_logits(p, ids, cfg), labels)),
+                    card, runs=1, top_n=12))
+
+
+def by_kind(events):
+    """Print the device time of ``events`` by kind of kernel."""
     kinds = {}
     for e in events:
         name = e.key.lower()
@@ -133,6 +221,9 @@ def main() -> int:
     card = card_line()
     if sys.argv[1:] == ["--train"]:
         train_profile(card)
+        return 0
+    if sys.argv[1:] == ["--gnn"]:
+        gnn_profile(card)
         return 0
     pos, edges, batch = inputs()
     cfg = EvalConfig(radius=RADIUS, n_strips=N_STRIPS)
