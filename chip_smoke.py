@@ -173,6 +173,23 @@ Phases (any failed check raises):
    float64 recount, two ``train_batch`` steps (65,536 rows) on one
    ``ClickLogStream`` batch with the second loss below the first; the
    latencies and peak memory.
+   (m) the equivariant family (``repro_torch.models.so3``,
+   ``.equivariant``), float32 with TF32 off, every kernel's launch count
+   set to 0 before and required to be 0 after: (m1) the smoke configs of
+   nequip and equiformer-v2 (full and compact eSCN) with parameters from
+   ``numpy_params(cfg, GNN_SEED)`` on :func:`eqv_smoke_batch`'s padded
+   batch (several edge chunks, masked self-loops and padding, a node
+   without incoming edges, three graphs): energies, NequIP's forces, the
+   loss, gradient norm and ``GNN_STEPS`` in-place AdamW steps' losses
+   against ``EQV_REFERENCE`` at ``TRAIN_RTOL``; (m2) nequip and (m3)
+   equiformer-v2 at their published configs on ``molecule`` (128 graphs
+   of 30 nodes and 64 bonds, padded to 4,096 node and 16,384 edge
+   slots), parameters drawn on the card: the first 16 graphs' energies
+   against the port on the CPU (float32; bound twice that route's
+   distance from a float64 run), invariance under a rotation and
+   translation, (m3) compact against full eSCN, ``AdamWConfig()`` steps
+   with the second loss below the first; forward and step times, peak
+   memory and model FLOP/s by ``src/repro/launch/cells.py``'s formula.
 4. **Timings**: median of 5 CUDA-event-timed runs after a warm-up, for
    (a)-(e3) and (e5); for (f), over 2 replays of the drag on fresh
    sessions, the median and p95 of a frame's ``update`` (host clock; the
@@ -195,8 +212,8 @@ The last lines are a ``{"kernels": [...]}`` JSON line (the four kernels
 over (a)-(g), the row-range launches of kernels 2 and 3 over (h) as
 ``occlusion_pairs_rows`` and ``segment_crossing_rows``, and the bfloat16
 instantiations of kernels 1 and 2 over (i) as ``strip_reversal_bf16``
-and ``occlusion_pairs_bf16``; each entry's ``launches_l`` is its count
-in (l), 0), the card line
+and ``occlusion_pairs_bf16``; each entry's ``launches_l`` and
+``launches_m`` are its counts in (l) and (m), 0), the card line
 from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
 ``python3 chip_smoke.py --rank R --world W --port P`` is one rank of
 (h)'s gloo group, which the script starts itself.
@@ -1196,6 +1213,129 @@ GNN_REFERENCE = {'gcn-cora': {'logits': [0.5069126486778259,
              'losses': [0.6923440098762512,
                         0.6906144022941589,
                         0.6872937679290771]}}
+# (m): the equivariant family, float32 with TF32 off.  (m1) the smoke
+# configs (EQV_CASES: nequip, equiformer-v2 in both eSCN layouts) at
+# numpy_params(cfg, GNN_SEED) on eqv_smoke_batch's padded batch: energies,
+# NequIP's forces, the loss, its gradient's norm and GNN_STEPS in-place
+# AdamW steps (AdamWConfig(**GNN_OPT)) against EQV_REFERENCE at TRAIN_RTOL
+EQV_CASES = ("nequip", "equiformer-v2", "equiformer-v2-compact")
+# (m2) nequip and (m3) equiformer-v2 at their published configs on the
+# molecule shape as src/repro/launch/cells.py builds it: 128 graphs of 30
+# nodes and 64 edges (batch_molecules), padded to 4,096 node and 16,384
+# edge slots, energies of 128 graphs against random targets
+MOL_GRAPHS, MOL_NODES_PER, MOL_EDGES_PER = 128, 30, 64
+MOL_NODE_SLOTS, MOL_EDGE_SLOTS = 4_096, 16_384
+# the card's energies of the first MOL_CHECKED graphs against the port on
+# the CPU on the sub-batch of those graphs
+MOL_CHECKED = 16
+# tests/test_equivariant.py's invariance bars and
+# tests/test_perf_variants.py's compact-vs-full rtol
+EQV_INV_RTOL, EQV_INV_ATOL, EQV_COMPACT_RTOL = 2e-4, 1e-4, 1e-4
+# AdamWConfig() training steps on one batch (the first two losses
+# compared), timed after the first
+EQV_STEPS = 1 + REPEATS
+# the H100 SXM's float32 peak outside the tensor cores (NVIDIA's data
+# sheet, at the 700 W limit)
+F32_PEAK_FLOPS = 67e12
+# JAX reference constants of (m1), made on the CPU with
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py \
+#       --equivariant
+# (the reference's modules op by op on the same numpy parameters and
+# inputs; NequIP's forces on the nodes where the reference's are finite:
+# on a node with a self-loop jnp.arctan2's gradient at (0, 0) makes them
+# NaN, where the port's are finite)
+EQV_REFERENCE = {'nequip': {'energies': [1.4295440912246704,
+                         0.8198665976524353,
+                         1.155815601348877],
+            'forces_rows': [0,
+                            1,
+                            2,
+                            5,
+                            7,
+                            8,
+                            9,
+                            12,
+                            13,
+                            16,
+                            18,
+                            20,
+                            21,
+                            24,
+                            27,
+                            28,
+                            31],
+            'forces': [-0.010676843114197254,
+                       0.02547013759613037,
+                       0.005541201680898666,
+                       -6.504086195491254e-05,
+                       -0.0007607439765706658,
+                       -0.0021837048698216677,
+                       0.0052356598898768425,
+                       -0.012821605429053307,
+                       -0.0005219483282417059,
+                       -0.03216275945305824,
+                       -0.020455239340662956,
+                       -0.017000187188386917,
+                       0.010937555693089962,
+                       0.004987149033695459,
+                       -0.011191878467798233,
+                       0.014589304104447365,
+                       0.0055474527180194855,
+                       -0.004484066739678383,
+                       -0.010713223367929459,
+                       0.0034357954282313585,
+                       0.013429573737084866,
+                       0.007146607618778944,
+                       0.002902999520301819,
+                       -0.0016871665138751268,
+                       -0.00014026154531165957,
+                       -8.92235038918443e-05,
+                       -0.0003398418193683028,
+                       0.0012383242137730122,
+                       0.0012167454697191715,
+                       8.729454566491768e-05,
+                       -0.000393084017559886,
+                       -0.0048770844005048275,
+                       0.01020335778594017,
+                       -0.014449607580900192,
+                       0.012548239901661873,
+                       -0.01828731968998909,
+                       0.013472060672938824,
+                       -0.004922086372971535,
+                       -0.005766577087342739,
+                       -0.0008685585926286876,
+                       5.392407183535397e-05,
+                       -0.000316592282615602,
+                       -0.0007737134583294392,
+                       -0.008882991969585419,
+                       -0.012653893791139126,
+                       -0.013452330604195595,
+                       0.0027503613382577896,
+                       0.005271113011986017,
+                       -0.0,
+                       -0.0,
+                       -0.0],
+            'loss': 0.9977597594261169,
+            'grad_norm': 26.991823196411133,
+            'losses': [0.9977597594261169,
+                       0.8473234176635742,
+                       0.5949775576591492]},
+ 'equiformer-v2': {'energies': [-0.6047521233558655,
+                                -0.8722313642501831,
+                                -0.6957927942276001],
+                   'loss': 1.2084933519363403,
+                   'grad_norm': 37.65044021606445,
+                   'losses': [1.2084933519363403,
+                              0.862981379032135,
+                              0.41064807772636414]},
+ 'equiformer-v2-compact': {'energies': [-0.6047521233558655,
+                                        -0.8722313642501831,
+                                        -0.6957927942276001],
+                           'loss': 1.2084933519363403,
+                           'grad_norm': 37.65044021606445,
+                           'losses': [1.2084933519363403,
+                                      0.862981379032135,
+                                      0.41064807772636414]}}
 INT_FIELDS = ("node_occlusion", "edge_crossing", "crossing_count_for_angle",
               "overflow")
 FLOAT_FIELDS = ("minimum_angle", "edge_length_variation",
@@ -3841,44 +3981,367 @@ def xdeepfm_phase(dev, card):
     torch.cuda.empty_cache()
 
 
-def gnn_phase(dev, card):
-    """(l): (l1)-(l4), float32 products with TF32 off, with every kernel's
-    launch count set to 0 before and read after: no kernel of the port
-    lies on these paths.  Returns those counts."""
-    import torch
+def kernel_counters():
+    """Every kernel wrapper's launch counters, by kernel line name:
+    ``{name: (wrapper, counter attribute, ...)}``."""
     from repro_torch.kernels.crossing_angle_sum import crossing_angle_stats
     from repro_torch.kernels.occlusion_pairs import (occlusion_pairs,
                                                      occlusion_pairs_rows)
     from repro_torch.kernels.segment_crossing import (crossing_count,
                                                       crossing_count_rows)
     from repro_torch.kernels.strip_reversal import strip_reversal_rows
+    return {"strip_reversal": (strip_reversal_rows, "LAUNCHES",
+                               "LAUNCHES_BF16"),
+            "occlusion_pairs": (occlusion_pairs, "LAUNCHES",
+                                "LAUNCHES_BF16"),
+            "occlusion_pairs_rows": (occlusion_pairs_rows, "LAUNCHES",
+                                     "LAUNCHES_BF16"),
+            "segment_crossing": (crossing_count, "LAUNCHES"),
+            "segment_crossing_rows": (crossing_count_rows, "LAUNCHES"),
+            "crossing_angle_sum": (crossing_angle_stats, "LAUNCHES")}
+
+
+def no_kernel_phase(label, run):
+    """``run()`` with float32 products and TF32 off, every kernel's launch
+    count set to 0 before and required to be 0 after (no kernel of the
+    port lies on these paths).  Returns those counts."""
+    import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    counters = {"strip_reversal": (strip_reversal_rows, "LAUNCHES",
-                                   "LAUNCHES_BF16"),
-                "occlusion_pairs": (occlusion_pairs, "LAUNCHES",
-                                    "LAUNCHES_BF16"),
-                "occlusion_pairs_rows": (occlusion_pairs_rows, "LAUNCHES",
-                                         "LAUNCHES_BF16"),
-                "segment_crossing": (crossing_count, "LAUNCHES"),
-                "segment_crossing_rows": (crossing_count_rows, "LAUNCHES"),
-                "crossing_angle_sum": (crossing_angle_stats, "LAUNCHES")}
+    counters = kernel_counters()
     for fn, *names in counters.values():
         for name in names:
             setattr(fn, name, 0)
-    t0 = time.perf_counter()
-    check(GNN_REFERENCE is not None, "(l) GNN_REFERENCE is not set")
-    gnn_smoke_phase(dev)
-    gnn_cora_phase(dev, card)
-    gnn_reddit_phase(dev, card)
-    xdeepfm_phase(dev, card)
+    run()
     launches = {k: sum(getattr(fn, name) for name in names)
                 for k, (fn, *names) in counters.items()}
-    check(not any(launches.values()), f"(l) kernel launches {launches}")
-    print(f"(l) kernel launches in (l1)-(l4): {launches}", flush=True)
-    print(f"time (l) the GNN and recsys phase: "
-          f"{time.perf_counter() - t0:.2f} s (wall)", flush=True)
+    check(not any(launches.values()), f"({label}) kernel launches "
+                                      f"{launches}")
+    print(f"({label}) kernel launches: {launches}", flush=True)
     return launches
+
+
+def gnn_phase(dev, card):
+    """(l): (l1)-(l4), float32 products with TF32 off, with every kernel's
+    launch count set to 0 before and read after: no kernel of the port
+    lies on these paths.  Returns those counts."""
+    def run():
+        t0 = time.perf_counter()
+        check(GNN_REFERENCE is not None, "(l) GNN_REFERENCE is not set")
+        gnn_smoke_phase(dev)
+        gnn_cora_phase(dev, card)
+        gnn_reddit_phase(dev, card)
+        xdeepfm_phase(dev, card)
+        print(f"time (l) the GNN and recsys phase: "
+              f"{time.perf_counter() - t0:.2f} s (wall)", flush=True)
+    return no_kernel_phase("l", run)
+
+
+# ---------------------------------------------------------------------------
+# phase (m): the equivariant family
+# ---------------------------------------------------------------------------
+
+# the node-indexed arrays of a molecule batch (the others are per edge,
+# and targets per graph)
+NODE_KEYS = ("positions", "species", "node_mask", "graph_id")
+
+
+def molecule_batch(rng, *, n_graphs, nodes_per, edges_per, n_nodes, n_edges):
+    """``graphs.format.batch_molecules`` of ``n_graphs`` graphs padded to
+    ``n_nodes`` node and ``n_edges`` edge slots (numpy), with random
+    ``targets`` (n_graphs,): padded nodes masked, padded edges masked and
+    running from the first padded node to itself; the batch's own
+    self-loops masked (``edge_mask = src != dst``)."""
+    import numpy as np
+    from repro_torch.graphs.format import batch_molecules
+    b, _ = batch_molecules(rng, n_graphs=n_graphs, nodes_per=nodes_per,
+                           edges_per=edges_per)
+    n, e = b["positions"].shape[0], b["edge_src"].shape[0]
+    check(n < n_nodes and e <= n_edges, f"{n} nodes, {e} edges")
+    out = {}
+    for k, v in b.items():
+        out[k] = np.zeros((n_nodes if k in NODE_KEYS else n_edges,
+                           *v.shape[1:]), v.dtype)
+        out[k][:v.shape[0]] = v
+    out["edge_src"][e:] = n
+    out["edge_dst"][e:] = n
+    out["targets"] = rng.normal(size=(n_graphs,)).astype(np.float32)
+    return out
+
+
+def eqv_smoke_batch():
+    """(m1)'s inputs (numpy, from ``default_rng(GNN_SEED)``; ``tools/
+    chip_smoke_reference.py --equivariant`` feeds the reference the
+    same): 3 molecules of 10 nodes and 90 edges padded to 32 nodes and
+    512 edges (4 chunks at the smoke configs' 128), node 1 without an
+    incoming edge (its edges go to node 0)."""
+    import numpy as np
+    b = molecule_batch(np.random.default_rng(GNN_SEED), n_graphs=3,
+                       nodes_per=10, edges_per=90, n_nodes=32, n_edges=512)
+    b["edge_dst"][b["edge_dst"] == 1] = 0
+    b["edge_mask"] &= b["edge_src"] != b["edge_dst"]
+    return b
+
+
+def eqv_model(case, batch):
+    """``(cfg, forward(params), loss_of(energies))`` of ``case`` (an
+    ``EQV_CASES`` name or an arch id) at its smoke config on ``batch``
+    (a dict of tensors)."""
+    import dataclasses as dc
+    from repro_torch import configs
+    from repro_torch.models import equivariant as eqv
+    arch = case.removesuffix("-compact")
+    cfg = configs.get_arch(arch).smoke_config
+    if case.endswith("-compact"):
+        cfg = dc.replace(cfg, compact_escn=True)
+    return (cfg,) + eqv_forward(cfg, batch)
+
+
+def eqv_forward(cfg, batch):
+    """``(forward(params), loss_of(energies))`` of ``cfg`` on ``batch``."""
+    from repro_torch.models import equivariant as eqv
+    fwd = (eqv.nequip_forward if "nequip" in cfg.name
+           else eqv.equiformer_forward)
+    n_graphs = batch["targets"].shape[0]
+    return (lambda p: fwd(p, batch, cfg, n_graphs=n_graphs),
+            lambda out: eqv.energy_loss(out, batch["targets"]))
+
+
+def forces_of(cfg, params, batch):
+    """``-dE/dpos`` of the summed energies (autograd)."""
+    import torch
+    pos = batch["positions"].detach().clone().requires_grad_()
+    forward, _ = eqv_forward(cfg, dict(batch, positions=pos))
+    (grad,) = torch.autograd.grad(forward(params).sum(), pos)
+    return -grad
+
+
+def eqv_smoke_phase(dev):
+    """(m1): the smoke configs against :data:`EQV_REFERENCE`."""
+    import math
+
+    import numpy as np
+    import torch
+    from repro_torch.models import equivariant as eqv
+    from repro_torch.models.common import params_from_reference
+    from repro_torch.optim import adamw
+    check(EQV_REFERENCE is not None, "(m) EQV_REFERENCE is not set")
+    host = eqv_smoke_batch()
+    for case in EQV_CASES:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        cfg, forward, loss_of = eqv_model(case, batch)
+        params = params_from_reference(eqv.numpy_params(cfg, GNN_SEED),
+                                       device=dev)
+        with torch.no_grad():
+            energies = forward(params).cpu().numpy()
+        want = EQV_REFERENCE[case]
+        ok, err, tol = near(energies, want["energies"], TRAIN_RTOL)
+        note = ""
+        if "forces" in want:
+            forces = forces_of(cfg, params, batch).cpu().numpy()
+            rows = want["forces_rows"]
+            f_ok, f_err, f_tol = near(forces[rows].reshape(-1),
+                                      want["forces"], TRAIN_RTOL)
+            ok = ok and f_ok and bool(np.isfinite(forces).all())
+            note = (f"; forces on {len(rows)} of {len(forces)} nodes within "
+                    f"{f_err:.3e} (bound {f_tol:.3e}), all finite")
+        step = inplace_trainer(params, adamw.AdamWConfig(**GNN_OPT))
+        losses, metrics, _ = timed_steps(step, lambda p: loss_of(forward(p)),
+                                         GNN_STEPS)
+        scalars = {"loss": losses[0],
+                   "grad_norm": float(metrics[0]["grad_norm"])}
+        ok = ok and all(math.isclose(scalars[k], want[k],
+                                     rel_tol=TRAIN_RTOL) for k in scalars)
+        ok = ok and np.allclose(losses, want["losses"], rtol=TRAIN_RTOL,
+                                atol=0)
+        check(ok, f"(m1) {case}: energies err {err} (bound {tol}){note}, "
+                  f"{scalars}, losses {losses}; reference {want}")
+        print(f"(m1) {case} ({cfg.name}): energies {energies.shape} within "
+              f"{err:.3e} of the reference (bound {tol:.3e}){note}; loss "
+              f"{scalars['loss']!r}, grad norm {scalars['grad_norm']!r}, "
+              f"{GNN_STEPS} steps' losses {losses} (rtol {TRAIN_RTOL})",
+              flush=True)
+
+
+def equivariant_flops(arch, cfg, n_edges, n_nodes):
+    """The model FLOP of one training step by
+    ``src/repro/launch/cells.py``'s ``_equivariant_flops``."""
+    C = cfg.d_hidden
+    if arch == "nequip":
+        per_edge = sum(2 * (2 * l1 + 1) * (2 * l2 + 1) * (2 * l3 + 1) * C
+                       for (l1, l2, l3) in cfg.paths) \
+            + 2 * cfg.n_rbf * cfg.radial_hidden \
+            + 2 * cfg.radial_hidden * len(cfg.paths) * C
+        per_node = 2 * ((cfg.l_max + 1) ** 2) * C * C * 2
+        return 3.0 * cfg.n_layers * (n_edges * per_edge + n_nodes * per_node)
+    rot = 2 * sum((2 * l + 1) ** 2 for l in range(cfg.l_max + 1)) * C * 2
+    so2 = 2 * ((cfg.l_max + 1) * C) ** 2 \
+        + sum(4 * 2 * ((cfg.l_max + 1 - m) * C) ** 2
+              for m in range(1, cfg.m_max + 1))
+    per_node = 2 * ((cfg.l_max + 1) ** 2) * C * C * 6
+    return 3.0 * cfg.n_layers * (n_edges * (rot + so2) + n_nodes * per_node)
+
+
+def molecule_host():
+    """(m2)/(m3)'s padded molecule batch (numpy) and the sub-batch of its
+    first :data:`MOL_CHECKED` graphs (their nodes and edges come first)."""
+    import numpy as np
+    host = molecule_batch(np.random.default_rng(GNN_SEED),
+                          n_graphs=MOL_GRAPHS, nodes_per=MOL_NODES_PER,
+                          edges_per=MOL_EDGES_PER, n_nodes=MOL_NODE_SLOTS,
+                          n_edges=MOL_EDGE_SLOTS)
+    n, e = MOL_CHECKED * MOL_NODES_PER, MOL_CHECKED * MOL_EDGES_PER
+    sub = {k: v[:n if k in NODE_KEYS else e] for k, v in host.items()}
+    sub["targets"] = host["targets"][:MOL_CHECKED]
+    return host, sub
+
+
+def cpu_energies(cfg, params, sub, dtype):
+    """The port's energies of ``sub`` on the CPU at ``dtype`` (the
+    config's and the parameters')."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch.optim import adamw
+    cfg = dc.replace(cfg, dtype=dtype)
+    p = adamw._map(lambda t: t.detach().to("cpu", dtype), params)
+    b = {k: torch.from_numpy(v) for k, v in sub.items()}
+    if dtype == torch.float64:
+        b["positions"] = b["positions"].double()
+    forward, _ = eqv_forward(cfg, b)
+    with torch.no_grad():
+        return forward(p).double().numpy()
+
+
+def eqv_full_phase(dev, card, arch):
+    """(m2) nequip or (m3) equiformer-v2 at its published config on the
+    padded molecule batch: the card against the port on the CPU (float32,
+    bound by float64) on the first graphs, invariance, (m3) compact against
+    full, training steps, times, peak memory and model FLOP/s."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import equivariant as eqv
+    from repro_torch.models import so3
+    from repro_torch.optim import adamw
+    label = "m2" if arch == "nequip" else "m3"
+    t0 = time.perf_counter()
+    cfg = configs.get_arch(arch).config
+    host, sub = molecule_host()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    init = (eqv.init_nequip_params if arch == "nequip"
+            else eqv.init_equiformer_params)
+    params = init(cfg, torch.Generator(device=dev).manual_seed(GNN_SEED))
+    n_params = sum(p.numel() for p in adamw._leaves(params))
+    layouts = {"full": cfg}
+    if arch == "equiformer-v2":
+        layouts["compact"] = dc.replace(cfg, compact_escn=True)
+    fwds = {k: eqv_forward(c, batch) for k, c in layouts.items()}
+    forward, loss_of = fwds["full"]
+    with torch.no_grad():
+        energies = forward(params)
+        e_card = energies[:MOL_CHECKED].double().cpu().numpy()
+        rng = np.random.default_rng(GNN_SEED + 1)
+        a, b, g = rng.uniform(-np.pi, np.pi, 3)
+        R = torch.tensor(so3._rot_z(a) @ so3._rot_y(b) @ so3._rot_z(g),
+                         dtype=torch.float32, device=dev)
+        shift = torch.tensor(rng.normal(size=3) * 3, dtype=torch.float32,
+                             device=dev)
+        moved = dict(batch, positions=batch["positions"] @ R.T + shift)
+        e_moved = eqv_forward(cfg, moved)[0](params)
+        compact = (fwds["compact"][0](params) if "compact" in fwds
+                   else None)
+    e32 = cpu_energies(cfg, params, sub, torch.float32)
+    e64 = cpu_energies(cfg, params, sub, torch.float64)
+    dist = float(np.abs(e32 - e64).max())
+    err = float(np.abs(e_card - e32).max())
+    err64 = float(np.abs(e_card - e64).max())
+    check(bool(torch.isfinite(energies).all())
+          and tuple(energies.shape) == (MOL_GRAPHS,) and err <= 2 * dist,
+          f"({label}) energies of the first {MOL_CHECKED} graphs: card vs "
+          f"CPU float32 {err} (bound {2 * dist}), vs CPU float64 {err64}")
+    inv = torch.allclose(energies, e_moved, rtol=EQV_INV_RTOL,
+                         atol=EQV_INV_ATOL)
+    inv_err = float((energies - e_moved).abs().max())
+    check(inv, f"({label}) rotated and translated: max diff {inv_err}")
+    note = ""
+    if compact is not None:
+        # within EQV_COMPACT_RTOL of the largest energy: a graph whose
+        # energy is near 0 would hold an element-wise bar to the noise of
+        # index_add's atomics (both layouts sum in no fixed order)
+        c_ok, c_err, c_tol = near(compact.cpu().numpy(),
+                                  energies.cpu().numpy(), EQV_COMPACT_RTOL)
+        c_rel = float(((compact - energies).abs()
+                       / energies.abs().clamp_min(1e-30)).max())
+        check(c_ok, f"(m3) compact vs full: err {c_err} (bound {c_tol})")
+        note = (f"; compact eSCN equals full within {c_err:.3e} (bound "
+                f"{c_tol:.3e}: rtol {EQV_COMPACT_RTOL} of the largest; "
+                f"element-wise {c_rel:.3e} relative, smallest |energy| "
+                f"{float(energies.abs().min()):.3e})")
+    print(f"({label}) {arch} at its published config ({cfg.n_layers} "
+          f"layers, {cfg.d_hidden} channels, l_max {cfg.l_max}; {n_params:,} "
+          f"parameters) on molecule: {MOL_GRAPHS} graphs x {MOL_NODES_PER} "
+          f"nodes, {MOL_EDGES_PER} edges, padded to {MOL_NODE_SLOTS} / "
+          f"{MOL_EDGE_SLOTS} slots; energies of the first {MOL_CHECKED} "
+          f"graphs within {err:.3e} of the port on the CPU in float32 "
+          f"(bound {2 * dist:.3e}: twice that route's distance {dist:.3e} "
+          f"from the port in float64; the card's {err64:.3e}); rotated and "
+          f"translated within {inv_err:.3e} (rtol {EQV_INV_RTOL}, atol "
+          f"{EQV_INV_ATOL}){note}", flush=True)
+
+    times = {}
+    with torch.no_grad():
+        for k, (fwd_k, _) in fwds.items():
+            times[f"forward {k}"] = cuda_ms(lambda f=fwd_k: f(params))
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step = inplace_trainer(params, adamw.AdamWConfig())
+    losses, metrics, ms = timed_steps(step, lambda p: loss_of(forward(p)),
+                                      EQV_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and losses[1] < losses[0],
+          f"({label}) losses {losses}")
+    times["step full"] = statistics.median(ms[1:])
+    spread = f"min {min(ms[1:]):.3f}, max {max(ms[1:]):.3f}"
+    if "compact" in fwds:
+        _, _, c_ms = timed_steps(
+            step, lambda p: fwds["compact"][1](fwds["compact"][0](p)),
+            EQV_STEPS)
+        times["step compact"] = statistics.median(c_ms[1:])
+    flops = equivariant_flops(arch, cfg, MOL_EDGE_SLOTS, MOL_NODE_SLOTS)
+    rate = flops / (times["step full"] * 1e-3)
+    print(f"({label}) {EQV_STEPS} AdamWConfig() steps on one batch: losses "
+          f"{losses}, grad norms "
+          f"{[float(m['grad_norm']) for m in metrics]}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"time ({label}) {arch} molecule: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f" (forwards median of {REPEATS}, steps median of "
+          f"{EQV_STEPS - 1} after the first; full step {spread}), CUDA "
+          f"events; peak memory allocated {peak / 2 ** 30:.3f} GiB "
+          f"({held / 2 ** 30:.3f} GiB held before the steps); model "
+          f"FLOP per step {flops:.4g} (cells.py's formula): "
+          f"{rate / 1e12:.3f} TFLOP/s, {rate / F32_PEAK_FLOPS:.4f} of the "
+          f"H100 SXM's float32 non-tensor peak ({F32_PEAK_FLOPS / 1e12:.0f} "
+          f"TFLOP/s), on {card}", flush=True)
+    del params, step, batch, fwds, moved
+    torch.cuda.empty_cache()
+
+
+def equivariant_phase(dev, card):
+    """(m): (m1)-(m3), float32 products with TF32 off, with every
+    kernel's launch count set to 0 before and read after.  Returns those
+    counts."""
+    def run():
+        t0 = time.perf_counter()
+        eqv_smoke_phase(dev)
+        eqv_full_phase(dev, card, "nequip")
+        eqv_full_phase(dev, card, "equiformer-v2")
+        print(f"time (m) the equivariant phase: "
+              f"{time.perf_counter() - t0:.2f} s (wall)", flush=True)
+    return no_kernel_phase("m", run)
 
 
 def main() -> int:
@@ -4384,6 +4847,8 @@ def main() -> int:
           f"s (wall)", flush=True)
     # (l) the GNN and recsys families; (k2)'s model and state are freed
     gnn_launches = gnn_phase(dev, card)
+    # (m) the equivariant family
+    eqv_launches = equivariant_phase(dev, card)
 
     # -- 4. timings --------------------------------------------------------
     path_ms = {
@@ -4575,12 +5040,14 @@ def main() -> int:
             library_ms=None))
     kernels += bf16_entries
     for k in kernels:
-        # no kernel runs on (l): its launches, counted in that run
+        # no kernel runs on (l) or (m): their launches, counted in those runs
         k["launches_l"] = gnn_launches.get(k["name"], 0)
+        k["launches_m"] = eqv_launches.get(k["name"], 0)
     print("kernel times are summed over every launch of one pass of "
           "(a)-(g), the row-range entries over (h)'s launches (parent and "
           "ranks), the bfloat16 entries over (i)'s; launches are counted "
-          "in those runs, launches_l in (l)'s (strip_reversal's "
+          "in those runs, launches_l in (l)'s, launches_m in (m)'s "
+          "(strip_reversal's "
           f"{h_rev_launches} launches in (h) are checked there and not "
           "added); ms is the kernel alone on the device (median), "
           "wrapper_ms the wrapper's call", flush=True)

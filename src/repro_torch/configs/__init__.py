@@ -3,10 +3,6 @@ architecture's published config, a reduced smoke config and its shape
 set.
 
 ``get_arch(arch_id)`` -> :class:`ArchSpec`; ``list_archs()`` -> ids.
-The five LM architectures, gcn-cora, graphsage-reddit and xdeepfm are
-ported; the equivariant ids (nequip, equiformer-v2) are listed as in the
-reference, and :func:`get_arch` raises ``NotImplementedError`` for them
-until their slice of the port (ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -35,6 +31,8 @@ _MODULES = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "gcn-cora": "gcn_cora",
+    "nequip": "nequip",
+    "equiformer-v2": "equiformer_v2",
     "graphsage-reddit": "graphsage_reddit",
     "xdeepfm": "xdeepfm",
 }
@@ -58,10 +56,6 @@ class ArchSpec:
 def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in ARCH_IDS:
         raise KeyError(arch_id)
-    if arch_id not in _MODULES:
-        raise NotImplementedError(
-            f"{arch_id!r} is an equivariant GNN; its family is not ported "
-            "to repro_torch yet (ROADMAP queue 1, item 4)")
     return importlib.import_module(
         f"repro_torch.configs.{_MODULES[arch_id]}").SPEC
 
@@ -71,12 +65,9 @@ def list_archs():
 
 
 def all_cells(include_skipped: bool = False):
-    """Every (arch, shape, skip reason) cell of the ported architectures
-    (all but the equivariant family so far)."""
+    """Every (arch, shape, skip reason) cell."""
     cells = []
     for arch_id in ARCH_IDS:
-        if arch_id not in _MODULES:
-            continue
         spec = get_arch(arch_id)
         for shape in spec.shapes:
             reason = spec.skips.get(shape)

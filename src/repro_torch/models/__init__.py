@@ -1,2 +1,2 @@
-"""Model families of the seed-template substrate (the LM serving path so
-far)."""
+"""Model families of the seed-template substrate: the LM, GNN, recsys
+and equivariant families."""

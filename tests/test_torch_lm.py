@@ -43,7 +43,8 @@ from repro_torch.models import transformer as t_tf
 
 RTOL, ATOL = 1e-4, 1e-5
 LM_ARCHS = t_configs.ARCH_IDS[:5]
-PORTED_ARCHS = LM_ARCHS + ("gcn-cora", "graphsage-reddit", "xdeepfm")
+PORTED_ARCHS = LM_ARCHS + ("gcn-cora", "nequip", "equiformer-v2",
+                            "graphsage-reddit", "xdeepfm")
 B, S, N_NEW = 2, 16, 4
 
 
@@ -102,10 +103,9 @@ def close(got, want, what):
 
 
 def test_configs_match_reference():
-    """Every ported arch's published and smoke configs field for field
-    (the dtype as its torch counterpart), the LM configs' parameter
-    counts, the shape sets and skips, ``all_cells`` over the ported
-    archs; an equivariant id raises, naming the queue item."""
+    """Every arch's published and smoke configs field for field (the
+    dtype as its torch counterpart), the LM configs' parameter counts,
+    the shape sets and skips, ``all_cells`` over all ten archs."""
     assert t_configs.ARCH_IDS == ref_configs.ARCH_IDS
     assert (t_configs.LM_SHAPES, t_configs.GNN_SHAPES,
             t_configs.RECSYS_SHAPES) == (ref_configs.LM_SHAPES,
@@ -136,13 +136,15 @@ def test_configs_match_reference():
     assert (xt.n_fields, xt.total_vocab) == (xr.n_fields, xr.total_vocab) \
         == (39, 91_020_160)
     np.testing.assert_array_equal(xt.field_offsets, xr.field_offsets)
-    ported = [c for c in ref_configs.all_cells(include_skipped=True)
-              if c[0] in PORTED_ARCHS]
-    assert t_configs.all_cells(include_skipped=True) == ported
-    assert t_configs.all_cells() == [c for c in ported if c[2] is None]
+    assert set(PORTED_ARCHS) == set(ref_configs.ARCH_IDS)
+    assert t_configs.all_cells(include_skipped=True) == \
+        ref_configs.all_cells(include_skipped=True)
+    assert t_configs.all_cells() == ref_configs.all_cells()
     for name in ("nequip", "equiformer-v2"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-            t_configs.get_arch(name)
+        tc = t_configs.get_arch(name).config
+        assert (tc.irrep_dim, tc.edge_chunk) == (
+            ref_configs.get_arch(name).config.irrep_dim,
+            ref_configs.get_arch(name).config.edge_chunk)
 
 
 def test_sharding_helpers_match_reference():

@@ -35,6 +35,7 @@ Usage (from the repository root)::
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --lm
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --train
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --gnn
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/chip_smoke_reference.py --equivariant
 
 ``--drag`` computes the constants of ``chip_smoke.py``'s phase (f), op by
 op: the reference's ``EvalSession(EvalConfig(radius=0.5, n_strips=512),
@@ -119,6 +120,16 @@ parameters from the port's numpy draw (``repro_torch.models.gnn`` /
 gradient's global norm, ``GNN_STEPS`` AdamW steps' losses
 (``AdamWConfig(**GNN_OPT)``), and xdeepfm's retrieval scores for the
 first row (the first 16 and the L2 norm).  About 40 s of CPU.
+
+``--equivariant`` computes the constants of phase (m1), op by op: for
+each of ``chip_smoke.EQV_CASES`` (nequip, equiformer-v2 and
+equiformer-v2 with ``compact_escn``) at the smoke config, parameters
+from the port's numpy draw (``repro_torch.models.equivariant.
+numpy_params(cfg, GNN_SEED)``) and ``chip_smoke.eqv_smoke_batch``'s
+inputs: the energies, NequIP's forces on the nodes where they are finite
+(``forces_rows``; a node with a self-loop has NaN forces in JAX), the
+loss, the gradient's global norm and ``GNN_STEPS`` AdamW steps' losses
+(``AdamWConfig(**GNN_OPT)``).  About a minute of CPU.
 
 ``--near-parallel`` runs the reference's engine on
 ``repro_torch.kernels.fixtures.near_parallel_layouts()`` (``RADIUS`` 2.0,
@@ -369,6 +380,63 @@ def compute_gnn():
             entry["scores_head"] = scores[:16].tolist()
             entry["scores_norm"] = float(np.linalg.norm(
                 scores.astype(np.float64)))
+        state, losses = adamw.init_state(params), []
+        for i in range(k.GNN_STEPS):
+            loss, grads = jax.value_and_grad(
+                lambda p: loss_of(forward(p)))(params)
+            if i == 0:
+                entry["loss"] = float(loss)
+                entry["grad_norm"] = float(adamw.global_norm(grads))
+            params, state, _ = adamw.apply_updates(params, grads, state, opt)
+            losses.append(float(loss))
+        entry["losses"] = losses
+        out[case] = entry
+    return out
+
+
+def compute_equivariant():
+    """Phase (m1): the equivariant smoke configs at float32, op by op (the
+    caller disables jit)."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from repro import configs as ref_configs
+    from repro.models import equivariant as ref_eqv
+    from repro.optim import adamw
+    from repro_torch import configs as t_configs
+    from repro_torch.models import equivariant as t_eqv
+    k = _smoke()
+
+    opt = adamw.AdamWConfig(**k.GNN_OPT)
+    host = k.eqv_smoke_batch()
+    batch = jax.tree.map(jnp.asarray, host)
+    n_graphs = host["targets"].size
+    out = {}
+    for case in k.EQV_CASES:
+        arch = case.removesuffix("-compact")
+        cfg = ref_configs.get_arch(arch).smoke_config
+        tcfg = t_configs.get_arch(arch).smoke_config
+        if case.endswith("-compact"):
+            cfg = dataclasses.replace(cfg, compact_escn=True)
+        fwd = (ref_eqv.nequip_forward if arch == "nequip"
+               else ref_eqv.equiformer_forward)
+
+        def forward(p, b=batch):
+            return fwd(p, b, cfg, n_graphs=n_graphs)
+
+        def loss_of(o):
+            return ref_eqv.energy_loss(o, batch["targets"])
+        params = jax.tree.map(jnp.asarray, t_eqv.numpy_params(
+            tcfg, k.GNN_SEED))
+        entry = {"energies": np.asarray(forward(params)).tolist()}
+        if arch == "nequip":
+            forces = -np.asarray(jax.grad(lambda x: forward(
+                params, dict(batch, positions=x)).sum())(
+                batch["positions"]))
+            rows = np.flatnonzero(np.isfinite(forces).all(1))
+            entry["forces_rows"] = rows.tolist()
+            entry["forces"] = forces[rows].reshape(-1).tolist()
         state, losses = adamw.init_state(params), []
         for i in range(k.GNN_STEPS):
             loss, grads = jax.value_and_grad(
@@ -678,6 +746,8 @@ def main():
                          "qwen3-4b at full width with 2 layers")
     ap.add_argument("--gnn", action="store_true",
                     help="phase (l1): the GNN and recsys smoke configs")
+    ap.add_argument("--equivariant", action="store_true",
+                    help="phase (m1): the equivariant smoke configs")
     ap.add_argument("--near-parallel", action="store_true",
                     help="the reference's jitted and op-by-op E_ca on the "
                          "near-parallel layouts")
@@ -688,6 +758,9 @@ def main():
     elif args.gnn:
         with jax.disable_jit():
             out = compute_gnn()
+    elif args.equivariant:
+        with jax.disable_jit():
+            out = compute_equivariant()
     elif args.lm:
         out = compute_lm()
     elif args.train:

@@ -38,9 +38,16 @@ forward and training step at minibatch_lg, and xdeepfm's serve_p99,
 serve_bulk, retrieval_cand and a train_batch step (the last two
 calls also by kind of kernel).
 
+``--equivariant`` profiles instead one training step of each of
+``chip_smoke.py``'s (m2) nequip and (m3) equiformer-v2 (both eSCN
+layouts) at their published configs on the padded molecule batch
+(AdamWConfig() defaults, the in-place trainer): the wall time, the device
+time and idle share, the kernels that take the most device time and the
+device time by kind of kernel.
+
 Usage (from the repository root, on a CUDA machine)::
 
-    python tools/profile_main_path.py [--train | --gnn]
+    python tools/profile_main_path.py [--train | --gnn | --equivariant]
 """
 
 from __future__ import annotations
@@ -197,6 +204,39 @@ def gnn_profile(card):
                     card, runs=1, top_n=12))
 
 
+def equivariant_profile(card):
+    """One training step of ``chip_smoke.py``'s (m2) and (m3), profiled."""
+    import dataclasses
+
+    import torch
+    import chip_smoke as cs
+    from repro_torch import configs
+    from repro_torch.models import equivariant as eqv
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    host, _ = cs.molecule_host()
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    for arch, init in (("nequip", eqv.init_nequip_params),
+                       ("equiformer-v2", eqv.init_equiformer_params)):
+        cfg = configs.get_arch(arch).config
+        params = init(cfg, torch.Generator(device=dev).manual_seed(
+            cs.GNN_SEED))
+        step = cs.inplace_trainer(params, adamw.AdamWConfig())
+        layouts = [cfg] + ([dataclasses.replace(cfg, compact_escn=True)]
+                           if arch == "equiformer-v2" else [])
+        for c in layouts:
+            forward, loss_of = cs.eqv_forward(c, batch)
+            layout = " compact" if getattr(c, "compact_escn", False) else ""
+            by_kind(profile(f"({'m2' if arch == 'nequip' else 'm3'}) "
+                            f"{arch}{layout} training step", lambda: step(
+                                lambda p: loss_of(forward(p))), card,
+                            runs=1, top_n=12, width=120))
+        del params, step
+        torch.cuda.empty_cache()
+
+
 def by_kind(events):
     """Print the device time of ``events`` by kind of kernel."""
     kinds = {}
@@ -224,6 +264,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--gnn"]:
         gnn_profile(card)
+        return 0
+    if sys.argv[1:] == ["--equivariant"]:
+        equivariant_profile(card)
         return 0
     pos, edges, batch = inputs()
     cfg = EvalConfig(radius=RADIUS, n_strips=N_STRIPS)
