@@ -190,6 +190,28 @@ Phases (any failed check raises):
    translation, (m3) compact against full eSCN, ``AdamWConfig()`` steps
    with the second loss below the first; forward and step times, peak
    memory and model FLOP/s by ``src/repro/launch/cells.py``'s formula.
+   (n) the dry run and the roofline (``repro_torch.launch.cells``,
+   ``.dryrun``, ``roofline.analysis``): (n1) ``python -m
+   repro_torch.launch.dryrun`` in ``DRYRUN_JOBS`` child processes on
+   this machine's cores, every cell of ``all_cells()`` and the three
+   readability shapes traced over 256 fake ranks (16 x 16) on fake CUDA
+   tensors, nothing allocated, the four skipped cells recorded with
+   their reasons, then ``N1_MULTI_POD`` (one cell of each family) over
+   512 (2 x 16 x 16): a line per cell (flops, per-device peak, whether it
+   fits 80 GB, the dominant roofline term, trace seconds), failing if a
+   cell fails or a child exits with another code than 0; (n2) the cells
+   that fit one card (``N2_CELLS``: xdeepfm's four shapes, nequip and
+   equiformer-v2 on ``molecule``, gcn-cora on ``full_graph_sm``,
+   graphsage-reddit on ``minibatch_lg``, the readability shapes at
+   ego-Facebook's size, both predicates for ``exact_crossing``) run for
+   real on a one-rank mesh with inputs and weights from ``N2_SEED``,
+   once to warm up and ``N2_RUNS`` times (CUDA events, median), float32
+   with TF32 off and every kernel's launch count 0; each held to its
+   trace on a (1, 1) fake mesh (``--trace-one-rank``, a child process):
+   argument bytes equal to the byte, the median at least ``compute_s``;
+   the readability counts equal to kernels 2r and 3r on the whole row
+   range and kernel 1 on the same buckets (its deviation sum at rtol
+   1e-5), those launches made after the timed runs.
 4. **Timings**: median of 5 CUDA-event-timed runs after a warm-up, for
    (a)-(e3) and (e5); for (f), over 2 replays of the drag on fresh
    sessions, the median and p95 of a frame's ``update`` (host clock; the
@@ -212,11 +234,13 @@ The last lines are a ``{"kernels": [...]}`` JSON line (the four kernels
 over (a)-(g), the row-range launches of kernels 2 and 3 over (h) as
 ``occlusion_pairs_rows`` and ``segment_crossing_rows``, and the bfloat16
 instantiations of kernels 1 and 2 over (i) as ``strip_reversal_bf16``
-and ``occlusion_pairs_bf16``; each entry's ``launches_l`` and
-``launches_m`` are its counts in (l) and (m), 0), the card line
-from ``nvidia-smi``, and ``{"ok": true, "device": {...}}``.
-``python3 chip_smoke.py --rank R --world W --port P`` is one rank of
-(h)'s gloo group, which the script starts itself.
+and ``occlusion_pairs_bf16``; each entry's ``launches_l``,
+``launches_m`` and ``launches_n`` are its counts in (l), (m) and (n2)'s
+cell runs, 0), the card line from ``nvidia-smi``, and ``{"ok": true,
+"device": {...}}``.  ``python3 chip_smoke.py --rank R --world W --port
+P`` is one rank of (h)'s gloo group, which the script starts itself;
+``python3 chip_smoke.py --trace-one-rank OUT`` is (n2)'s one-rank
+traces, in a process of their own (a fake process group).
 """
 
 from __future__ import annotations
@@ -4344,6 +4368,330 @@ def equivariant_phase(dev, card):
     return no_kernel_phase("m", run)
 
 
+# ---------------------------------------------------------------------------
+# phase (n): the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+# (n2): the cells that fit one card, run for real on a one-rank mesh (a
+# third entry is the readability cell's predicate)
+N2_CELLS = (("xdeepfm", "serve_p99"), ("xdeepfm", "serve_bulk"),
+            ("xdeepfm", "retrieval_cand"), ("xdeepfm", "train_batch"),
+            ("nequip", "molecule"), ("equiformer-v2", "molecule"),
+            ("gcn-cora", "full_graph_sm"),
+            ("graphsage-reddit", "minibatch_lg"),
+            ("readability", "exact_occlusion"),
+            ("readability", "exact_crossing", "sign"),
+            ("readability", "exact_crossing", "bool"),
+            ("readability", "enhanced_crossing"))
+N2_DATASET = "ego-Facebook"
+N2_SEED = 23
+N2_RUNS = 5
+# (n1) on the 2x16x16 mesh: one cell of each family
+N1_MULTI_POD = ("qwen3-4b:train_4k,qwen2-moe-a2.7b:decode_32k,"
+                "gcn-cora:full_graph_sm,nequip:molecule,xdeepfm:train_batch,"
+                "readability:exact_crossing")
+# dry-run child processes (the card's machine has 8 cores): the 16x16
+# run's, the 2x16x16 run's beside it, and the one-rank traces' one
+DRYRUN_JOBS = 6
+MULTI_POD_JOBS = 2
+DRYRUN_TIMEOUT = 420
+
+
+def n2_cell(entry, mesh):
+    from repro_torch.launch.cells import make_cell
+    arch, shape, *pred = entry
+    patch = None
+    if arch == "readability":
+        patch = {"dataset": N2_DATASET, "predicate": (pred or ["sign"])[0]}
+    return make_cell(arch, shape, mesh, config_patch=patch)
+
+
+def n2_label(entry):
+    return ":".join(entry)
+
+
+def one_rank_traces(out):
+    """(n2)'s cells traced on a (1, 1) mesh over a fake group of one rank
+    (``chip_smoke.py --trace-one-rank OUT``, a process of its own):
+    argument and peak bytes and the roofline terms of each, to ``OUT``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.cells import trace_cell
+    from repro_torch.launch.mesh import make_host_mesh, start_fake_group
+    from repro_torch.roofline.analysis import terms_of
+    start_fake_group(1)
+    mesh = make_host_mesh((1, 1))
+    res = {}
+    for entry in N2_CELLS:
+        cell = n2_cell(entry, mesh)
+        cost = trace_cell(cell, mesh)
+        t = terms_of(cost, cell.meta, arch=entry[0], shape=entry[1],
+                     mesh_name="1x1", chips=1)
+        res[n2_label(entry)] = dict(
+            argument_bytes=cost["argument_bytes"],
+            peak_bytes=cost["peak_bytes"], flops=cost["flops"],
+            bytes=cost["bytes accessed"], compute_s=t.compute_s,
+            memory_s=t.memory_s, dominant=t.dominant,
+            trace_s=cost["trace_s"], trips=cost["trips"])
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def start_child(args, log, jobs=None):
+    """``python ARGS OUT`` in a child process on this machine's cores
+    (``python -m repro_torch.launch.dryrun --jobs JOBS ARGS --out OUT``
+    when ``jobs`` is given), its output to ``log``; returns ``(process,
+    OUT, start time)``."""
+    import os
+    out = Path(tempfile.mkdtemp(prefix="dryrun_")) / "records.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, *args, str(out)]
+    if jobs is not None:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--jobs",
+               str(jobs), *args, "--out", str(out)]
+    f = open(log, "w")
+    # a session of its own: stopping it stops the dry run's own children
+    proc = subprocess.Popen(cmd, env=env, stdout=f, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    proc.log_file = f
+    return proc, out, time.perf_counter()
+
+
+def stop_child(proc):
+    """Kill a :func:`start_child` process and every process it started."""
+    import os
+    import signal
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def finish_child(child):
+    """Wait for a :func:`start_child` process (within
+    ``DRYRUN_TIMEOUT`` of its start); its exit code, parsed output and
+    seconds."""
+    proc, out, t0 = child
+    try:
+        proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT
+                              - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        stop_child(proc)
+    proc.log_file.close()
+    seconds = time.perf_counter() - t0
+    return (proc.returncode, json.loads(out.read_text())
+            if out.is_file() else [], seconds)
+
+
+def dryrun_full_phase(card, tmp, children):
+    """(n1): every cell of ``all_cells()`` and the three readability
+    shapes traced over 256 fake ranks (16 x 16), and one cell of each
+    family over 512 (2 x 16 x 16), by the children ``children`` started;
+    a line per cell."""
+    rc, records, seconds = finish_child(children["pod"])
+    traced = [r for r in records if r["status"] != "skipped"]
+    for r in traced:
+        if r["status"] != "ok":
+            print(f"(n1) {r['arch']} x {r['shape']}: {r['status']} "
+                  f"{r.get('error', '')[:300]}", flush=True)
+            continue
+        print(f"(n1) {r['mesh']} {r['arch']} x {r['shape']}: flops "
+              f"{r['flops']:.4e}, peak {r['peak_bytes'] / 2 ** 30:.3f} GiB "
+              f"per device, fits 80 GB {r['fits_80gb']}, dominant "
+              f"{r['dominant']} (compute {r['compute_s']:.4e} s, memory "
+              f"{r['memory_s']:.4e} s, collective {r['collective_s']:.4e} "
+              f"s), trace {r['trace_s']:.2f} s, replicated "
+              f"{r['replicated_ops']}", flush=True)
+    skipped = [r for r in records if r["status"] == "skipped"]
+    for r in skipped:
+        print(f"(n1) skipped {r['arch']} x {r['shape']}: {r['reason']}")
+    ok = [r for r in traced if r["status"] == "ok"]
+    print(f"time (n1) dry run on 16x16: {seconds:.2f} s (wall, "
+          f"{DRYRUN_JOBS} processes), {len(ok)} ok of {len(traced)}, "
+          f"{len(skipped)} skipped, rc {rc}", flush=True)
+    if rc != 0 or len(ok) != 39 or len(skipped) != 4:
+        print((tmp / "pod.log").read_text()[-6000:], flush=True)
+    check(rc == 0 and len(ok) == len(traced) == 39 and len(skipped) == 4,
+          f"(n1) the 16x16 dry run: rc {rc}, {len(ok)} ok of "
+          f"{len(traced)} traced, {len(skipped)} skipped")
+    rc2, multi, seconds2 = finish_child(children["multi"])
+    multi = [r for r in multi if r["status"] != "skipped"]
+    for r in multi:
+        print(f"(n1) {r['mesh']} {r['arch']} x {r['shape']}: "
+              f"{r['status']} flops {r.get('flops', 0):.4e}, peak "
+              f"{r.get('peak_bytes', 0) / 2 ** 30:.3f} GiB, fits "
+              f"{r.get('fits_80gb')}, dominant {r.get('dominant')}",
+              flush=True)
+    n_multi = len(N1_MULTI_POD.split(","))
+    if rc2 != 0:
+        print((tmp / "multi.log").read_text()[-6000:], flush=True)
+    check(rc2 == 0 and len(multi) == n_multi
+          and all(r["status"] == "ok" for r in multi),
+          f"(n1) the 2x16x16 dry run: rc {rc2}, {len(multi)} records")
+    print(f"time (n1) dry run on 2x16x16: {seconds2:.2f} s (wall, "
+          f"{MULTI_POD_JOBS} processes, beside the 16x16 run) on {card}",
+          flush=True)
+
+
+def tensor_bytes(tree):
+    """Bytes of the distinct storages under a nest of tensors."""
+    import torch
+    seen, total = set(), 0
+
+    def walk(t):
+        nonlocal total
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            if st.data_ptr() not in seen:
+                seen.add(st.data_ptr())
+                total += st.nbytes()
+    walk(tree)
+    return total
+
+
+def n2_readability_counts(entry, cell, args, mesh):
+    """The readability cell's count against the hand-written kernels on
+    the same inputs: kernel 2 on the whole row range, kernel 3 on it, or
+    kernel 1 on the buckets (the deviation sum too, ``with_angle``)."""
+    import torch
+    from repro_torch.distributed.gridded import lower_sharded_reversal
+    from repro_torch.kernels.occlusion_pairs import occlusion_pairs_rows
+    from repro_torch.kernels.segment_crossing import crossing_count_rows
+    from repro_torch.kernels.strip_reversal import strip_reversal_rows
+    shape = entry[1]
+    if shape == "exact_occlusion":
+        x, y, ok = args[3:]
+        got = int(cell.fn(*args))
+        want = int(occlusion_pairs_rows(x, y, ok, 0.5, 0, x.shape[0]))
+        check(got == want, f"(n2) {n2_label(entry)}: {got} pairs, kernel "
+                           f"{want}")
+        return f"{got} occluded pairs = occlusion_pairs_rows"
+    if shape == "exact_crossing":
+        sh, rep = args
+        got = int(cell.fn(sh, rep))
+        want = int(crossing_count_rows(*rep, 0, rep[0].shape[0]))
+        check(got == want, f"(n2) {n2_label(entry)}: {got} crossings, "
+                           f"kernel {want}")
+        return f"{got} crossings = crossing_count_rows"
+    n_strips, cap = args[0].shape
+    fn, _ = lower_sharded_reversal(mesh, n_strips, cap, with_angle=True)
+    cnt, dev_sum = fn(*args)
+    kc, kd = strip_reversal_rows(*args, ideal=1.0, with_angle=True)
+    got, want = int(cnt), int(kc.sum())
+    d_got = float(dev_sum)
+    d_want = float(kd.to(torch.float64).sum())
+    check(got == int(cell.fn(*args)[0]) == want,
+          f"(n2) {n2_label(entry)}: {got} reversals, kernel {want}")
+    check(abs(d_got - d_want) <= 1e-5 * abs(d_want),
+          f"(n2) {n2_label(entry)}: deviation {d_got}, kernel {d_want}")
+    return (f"{got} reversals = strip_reversal_rows, deviation sum "
+            f"{d_got:.6f} vs {d_want:.6f}")
+
+
+def dryrun_real_phase(dev, card, tmp, child):
+    """(n2): the cells that fit one card, each run once to warm up and
+    ``N2_RUNS`` times (CUDA events, median) on a one-rank mesh; their
+    argument bytes held to the one-rank traces' (the child ``child``
+    started; to the byte), the median to at least ``compute_s``; the
+    readability counts held to the kernels'."""
+    import torch
+    from repro_torch.distributed.compat import make_mesh
+    from repro_torch.launch.cells import readability_args, real_args
+    rc, traces, seconds = finish_child(child)
+    if rc != 0:
+        print((tmp / "one_rank.log").read_text()[-6000:], flush=True)
+    check(rc == 0 and bool(traces), f"(n2) the one-rank traces: rc {rc}")
+    print(f"time (n2) one-rank traces: {seconds:.2f} s (wall, beside "
+          f"(n1))", flush=True)
+    mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+    pending = []
+
+    def run():
+        for entry in N2_CELLS:
+            label = n2_label(entry)
+            cell = n2_cell(entry, mesh)
+            gen = torch.Generator().manual_seed(N2_SEED)
+            args = (readability_args(cell, mesh, dev, gen)
+                    if entry[0] == "readability"
+                    else real_args(cell, dev, gen))
+            tr = traces[label]
+            got_bytes = tensor_bytes(args)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            cell.fn(*args)
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(N2_RUNS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                cell.fn(*args)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            med = statistics.median(ms)
+            peak = torch.cuda.max_memory_allocated()
+            bound = max(tr["compute_s"], tr["memory_s"]) * 1e3
+            print(f"(n2) {label}: median {med:.3f} ms of {N2_RUNS} (CUDA "
+                  f"events; min {min(ms):.3f}, max {max(ms):.3f}), "
+                  f"compute_s {tr['compute_s'] * 1e3:.4f} ms, memory_s "
+                  f"{tr['memory_s'] * 1e3:.4f} ms, measured / max "
+                  f"{med / bound:.2f}; argument bytes {got_bytes} "
+                  f"(traced {tr['argument_bytes']}; remat trips run "
+                  f"{tr['trips']['run']}, replayed "
+                  f"{tr['trips']['replayed']}); peak allocated "
+                  f"{peak / 2 ** 30:.3f} GiB, traced peak "
+                  f"{tr['peak_bytes'] / 2 ** 30:.3f} GiB on {card}",
+                  flush=True)
+            check(got_bytes == tr["argument_bytes"],
+                  f"(n2) {label}: argument bytes {got_bytes}, traced "
+                  f"{tr['argument_bytes']}")
+            check(med >= tr["compute_s"] * 1e3,
+                  f"(n2) {label}: {med:.4f} ms beats compute_s "
+                  f"{tr['compute_s'] * 1e3:.4f} ms: a flop count is wrong")
+            if entry[0] == "readability":
+                pending.append((entry, cell, args))
+            else:
+                del args
+            torch.cuda.empty_cache()
+    launches = no_kernel_phase("n", run)
+    for entry, cell, args in pending:
+        print(f"(n2) {n2_label(entry)}: "
+              f"{n2_readability_counts(entry, cell, args, mesh)}",
+              flush=True)
+    return launches
+
+
+def dryrun_phase(dev, card):
+    """(n): (n1) the dry run over fake ranks at full size, (n2) the cells
+    that fit one card, run for real and held to their roofline.  Returns
+    (n2)'s kernel launch counts (0: the comparisons run after)."""
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="n_"))
+    # the three traces share the machine's cores, all at once
+    children = {
+        "pod": start_child([], tmp / "pod.log", jobs=DRYRUN_JOBS),
+        "multi": start_child(["--multi-pod", "--cell", N1_MULTI_POD],
+                             tmp / "multi.log", jobs=MULTI_POD_JOBS),
+        "one_rank": start_child([str(ROOT / "chip_smoke.py"),
+                                 "--trace-one-rank"], tmp / "one_rank.log")}
+    try:
+        dryrun_full_phase(card, tmp, children)
+        launches = dryrun_real_phase(dev, card, tmp, children["one_rank"])
+    finally:
+        # a failed check leaves no child running
+        for proc, _, _ in children.values():
+            stop_child(proc)
+    print(f"time (n) the dry-run phase: {time.perf_counter() - t0:.2f} s "
+          f"(wall)", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if sys.argv[1:2] == ["--rank"]:
@@ -4351,6 +4699,9 @@ def main() -> int:
         args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
         return distributed_rank(int(args["--rank"]), int(args["--world"]),
                                 int(args["--port"]))
+    if sys.argv[1:2] == ["--trace-one-rank"]:
+        # (n2)'s one-rank traces, in a process of their own
+        return one_rank_traces(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -4849,6 +5200,8 @@ def main() -> int:
     gnn_launches = gnn_phase(dev, card)
     # (m) the equivariant family
     eqv_launches = equivariant_phase(dev, card)
+    # (n) the dry run over fake ranks and the cells that fit one card
+    dry_launches = dryrun_phase(dev, card)
 
     # -- 4. timings --------------------------------------------------------
     path_ms = {
@@ -5043,10 +5396,12 @@ def main() -> int:
         # no kernel runs on (l) or (m): their launches, counted in those runs
         k["launches_l"] = gnn_launches.get(k["name"], 0)
         k["launches_m"] = eqv_launches.get(k["name"], 0)
+        k["launches_n"] = dry_launches.get(k["name"], 0)
     print("kernel times are summed over every launch of one pass of "
           "(a)-(g), the row-range entries over (h)'s launches (parent and "
           "ranks), the bfloat16 entries over (i)'s; launches are counted "
-          "in those runs, launches_l in (l)'s, launches_m in (m)'s "
+          "in those runs, launches_l in (l)'s, launches_m in (m)'s, "
+          "launches_n in (n2)'s cell runs "
           "(strip_reversal's "
           f"{h_rev_launches} launches in (h) are checked there and not "
           "added); ms is the kernel alone on the device (median), "

@@ -25,7 +25,9 @@ group has identity collectives throughout.
 sharded on its sequence axis over the mesh (the LM serving path):
 local softmax statistics merged by all-reduces.
 ``sharded_embedding_lookup`` is the recsys path's range-partitioned
-table lookup: each rank gathers the ids it owns, the ranks sum.
+table lookup: each rank of one axis gathers the ids it owns, the ranks
+of that axis sum.  :func:`psum_all` is the one all-reduce over every
+axis that ends the dry run's row-sharded builders.
 """
 
 from __future__ import annotations
@@ -162,28 +164,86 @@ def merge_decode_attention(mesh, q, k_cache, v_cache, pos, *,
     return o_star / torch.clamp_min(l_star, 1e-30)[..., None].to(o.dtype)
 
 
-def sharded_embedding_lookup(mesh, table, ids):
-    """Range-partitioned lookup: ``table`` ``(V, d)`` sharded on rows over
-    the ranks of a one-axis mesh, ``ids`` ``(...,)`` replicated.  Returns
-    ``(..., d)``, the same on every rank.
+def psum_all(mesh, t):
+    """Sum of ``t`` over every axis of a mesh, as one all-reduce: a
+    :class:`~repro_torch.distributed.compat.Mesh` (:func:`psum`) or a
+    ``DeviceMesh`` over the whole default group (a functional all-reduce,
+    which a trace over fake ranks records).  One rank: ``t``."""
+    if not hasattr(mesh, "mesh_dim_names"):
+        return psum(mesh, t)
+    if mesh.size() == 1:
+        return t
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"psum_all sums over the whole default group; "
+                         f"the mesh has {mesh.size()} of its "
+                         f"{dist.get_world_size()} ranks")
+    from torch.distributed import _functional_collectives as funcol
+    return funcol.all_reduce(t, "sum", dist.group.WORLD)
 
-    Rank ``r`` takes rows ``[r V/n, (r+1) V/n)`` of ``table`` (the
-    reference's ``shard_map`` in-spec; a rank reads only its slice),
-    gathers the ids in that range, zeroes the others, and the ranks sum
-    (:func:`psum`).  ``V`` must split evenly over the ranks.  Unlike the
-    reference, which replicates over a mesh's other axes, a mesh of two
-    axes raises."""
-    if len(mesh.axis_names) != 1:
-        raise ValueError(f"sharded_embedding_lookup shards over a one-axis "
-                         f"mesh; the mesh has {mesh.axis_names}")
-    n_shard, V = mesh.size, table.shape[0]
+
+# the sub-meshes of one axis: (id of the group, axis) -> Mesh
+_SUBMESHES = {}
+
+
+def axis_submesh(mesh, axis: str):
+    """The one-axis :class:`~repro_torch.distributed.compat.Mesh` of the
+    ranks that share this rank's position on every axis but ``axis``.
+    Every rank of ``mesh`` must call it (it makes the sub-groups of all
+    positions, in one order, the first time)."""
+    from repro_torch.distributed.compat import Mesh
+
+    if len(mesh.axis_names) == 1:
+        return mesh
+    key = (id(mesh.group), axis)
+    if key not in _SUBMESHES:
+        a = mesh.axis_names.index(axis)
+        shape = mesh.axis_shape
+        strides = [1] * len(shape)
+        for d in range(len(shape) - 2, -1, -1):
+            strides[d] = strides[d + 1] * shape[d + 1]
+        others = [d for d in range(len(shape)) if d != a]
+        mine = None
+        for pos in range(mesh.size // shape[a]):
+            base, rest = 0, pos
+            for d in reversed(others):
+                base += (rest % shape[d]) * strides[d]
+                rest //= shape[d]
+            ranks = [base + i * strides[a] for i in range(shape[a])]
+            glob = ([dist.get_global_rank(mesh.group, r) for r in ranks]
+                    if mesh.group is not None else ranks)
+            group = (dist.new_group(glob) if mesh.group is not None
+                     else None)
+            if mesh.rank in ranks:
+                mine = Mesh(group=group, rank=ranks.index(mesh.rank),
+                            axis_shape=(shape[a],), axis_names=(axis,),
+                            device=mesh.device)
+        _SUBMESHES[key] = mine
+    return _SUBMESHES[key]
+
+
+def sharded_embedding_lookup(mesh, table, ids, *, axis: str = "model"):
+    """Range-partitioned lookup: ``table`` ``(V, d)`` sharded on rows over
+    the mesh's ``axis``, ``ids`` ``(...,)`` replicated.  Returns ``(...,
+    d)``, the same on every rank.
+
+    Rank ``r`` of ``axis`` takes rows ``[r V/n, (r+1) V/n)`` of ``table``
+    (the reference's ``shard_map`` in-spec ``P(axis, None)``; a rank
+    reads only its slice), gathers the ids in that range, zeroes the
+    others, and the ranks of that axis sum (:func:`psum` over the axis's
+    sub-group; the mesh's other axes replicate).  ``V`` must split evenly
+    over the axis."""
+    if axis not in mesh.axis_names:
+        raise ValueError(f"the mesh {mesh.axis_names} has no axis "
+                         f"{axis!r}")
+    sub = axis_submesh(mesh, axis)
+    n_shard, V = sub.size, table.shape[0]
     if V % n_shard:
         raise ValueError(f"a table of {V} rows does not split over "
                          f"{n_shard} ranks")
     per = V // n_shard
-    lo = mesh.rank * per
+    lo = sub.rank * per
     local = ids.long() - lo
     in_range = (local >= 0) & (local < per)
     rows = table[lo:lo + per][torch.clamp(local, 0, per - 1)]
     rows = torch.where(in_range[..., None], rows, torch.zeros_like(rows))
-    return psum(mesh, rows)
+    return psum(sub, rows)

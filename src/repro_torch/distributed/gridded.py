@@ -15,8 +15,10 @@ import torch
 
 from repro_torch.core.grid import SegmentBuckets
 from repro_torch.core.validate import BackendUnavailableError, ReadabilityError
-from repro_torch.distributed.collectives import psum
-from repro_torch.kernels.strip_reversal import strip_reversal_rows
+from repro_torch.distributed.collectives import psum, psum_all
+from repro_torch.distributed.sharding import mesh_size
+from repro_torch.kernels.strip_reversal import (fused_reversal_block,
+                                                strip_reversal_rows)
 
 
 def _pad_strips(buckets: SegmentBuckets, n_dev: int):
@@ -165,3 +167,46 @@ def evaluate_sharded(mesh, pos, edges, *, config=None, plan=None):
     return ReadabilityScores(overflow=overflow,
                              n_vertices=int(pos.shape[0]),
                              n_edges=int(edges.shape[0]), **out)
+
+
+def lower_sharded_reversal(mesh, n_strips: int, cap: int, *,
+                           strip_block: int = 64, with_angle: bool = False,
+                           ideal_angle=None):
+    """The strip-sharded enhanced crossing counter as one rank's program,
+    for the dry run at full problem size: returns ``(fn,
+    abstract_args)``.
+
+    ``abstract_args`` are meta tensors of this rank's shards of the
+    reference's padded ``(n_strips_pad, cap)`` bucket arrays (``yl``,
+    ``yr``, ``theta`` float32, ``v``, ``u`` int32, ``valid`` bool, strips
+    split over every mesh axis); ``fn(yl, yr, theta, v, u, valid)``
+    sweeps them ``strip_block`` strips at a time with
+    :func:`~repro_torch.kernels.strip_reversal.fused_reversal_block` (the
+    formula the kernel computes; a fake trace cannot enter the kernel)
+    and returns ``(count, deviation sum)`` summed over the mesh (one
+    all-reduce each).  On real tensors it runs."""
+    n_dev = mesh_size(mesh)
+    n_strips_pad = -(-n_strips // n_dev) * n_dev
+    per = n_strips_pad // n_dev
+    b = min(strip_block, per)
+    ideal = 1.0 if ideal_angle is None else ideal_angle
+
+    def fn(yl, yr, theta, v, u, valid):
+        count = torch.zeros((), dtype=torch.int64, device=yl.device)
+        dev = torch.zeros((), dtype=torch.float32, device=yl.device)
+        for s0 in range(0, per, b):
+            # the reference's dynamic_slice clamps a last short block
+            sl = slice(min(s0, per - b), min(s0, per - b) + b)
+            c, d = fused_reversal_block(yl[sl], yr[sl], theta[sl], v[sl],
+                                        u[sl], valid[sl], ideal=ideal,
+                                        with_angle=with_angle)
+            count = count + c
+            dev = dev + d
+        return psum_all(mesh, count), psum_all(mesh, dev)
+
+    def meta(dtype):
+        return torch.empty((per, cap), dtype=dtype, device="meta")
+
+    f32, i32 = torch.float32, torch.int32
+    return fn, (meta(f32), meta(f32), meta(f32), meta(i32), meta(i32),
+                meta(torch.bool))

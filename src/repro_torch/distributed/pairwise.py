@@ -26,7 +26,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.validate import BackendUnavailableError, ReadabilityError
-from repro_torch.distributed.collectives import psum, ring_shift
+from repro_torch.core.geometry import (pair_dist_sq, segments_cross,
+                                       segments_cross_bool)
+from repro_torch.distributed.collectives import psum, psum_all, ring_shift
+from repro_torch.distributed.sharding import mesh_rank, mesh_size
 from repro_torch.kernels.occlusion_pairs import TILE as VERTEX_TILE
 from repro_torch.kernels.occlusion_pairs import occlusion_pairs_rows
 from repro_torch.kernels.ops import _edge_arrays, _pad1
@@ -142,3 +145,97 @@ def ring_occlusion_count(mesh, pos, radius, *, valid=None):
         return psum(mesh, total)
     return _run_sharded("ring-streamed occlusion", mesh, run)
 
+
+
+# ---------------------------------------------------------------------------
+# one rank's programs for the dry run (full problem sizes, no allocation)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def lower_sharded_occlusion(mesh, n_vertices: int, radius: float, *,
+                            block: int = 1024):
+    """The row-sharded exact N_c as one rank's program: returns ``(fn,
+    abstract_args)``.
+
+    ``abstract_args`` are meta tensors of the reference's shapes: this
+    rank's ``(1, rows_per)`` shards of ``x``, ``y``, ``valid`` and the
+    replicated ``(n_pad,)`` column operands (``n_pad`` rounded up to
+    ``ranks x block``).  ``fn(xs, ys, oks, xg, yg, okg)`` counts its rows
+    ``block`` at a time with :func:`~repro_torch.core.geometry.
+    pair_dist_sq` under global ``i < j`` indices and ends in one
+    all-reduce over every mesh axis; on real tensors it runs."""
+    n_dev = mesh_size(mesh)
+    n_pad = -(-n_vertices // (n_dev * block)) * (n_dev * block)
+    rows_per = n_pad // n_dev
+
+    def fn(xs, ys, oks, xg, yg, okg):
+        dev = xg.device
+        thresh = torch.tensor((2.0 * radius) ** 2, dtype=torch.float32,
+                              device=dev)
+        row0 = mesh_rank(mesh) * rows_per
+        col_idx = torch.arange(n_pad, device=dev)
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        for i0 in range(0, rows_per, block):
+            sl = slice(i0, i0 + block)
+            gi = row0 + i0 + torch.arange(block, device=dev)
+            d2 = pair_dist_sq(xs[0, sl], ys[0, sl], xg, yg)
+            mask = (gi[:, None] < col_idx[None, :]) & oks[0, sl, None] \
+                & okg[None]
+            total = total + (mask & (d2 < thresh)).sum()
+        return psum_all(mesh, total)
+
+    f32, b8 = torch.float32, torch.bool
+    return fn, (_meta((1, rows_per), f32), _meta((1, rows_per), f32),
+                _meta((1, rows_per), b8), _meta((n_pad,), f32),
+                _meta((n_pad,), f32), _meta((n_pad,), b8))
+
+
+def lower_sharded_crossing(mesh, n_edges: int, *, block: int = 256,
+                           predicate: str = "sign"):
+    """The row-sharded exact E_c as one rank's program: returns ``(fn,
+    (sharded, replicated))``.  ``predicate='bool'`` uses the
+    boolean-straddle form (:func:`~repro_torch.core.geometry.
+    segments_cross_bool`) in place of the sign products.
+
+    The abstract arguments are meta tensors of the reference's shapes:
+    this rank's ``(1, per)`` shards of ``x1, y1, x2, y2`` (float32),
+    ``v, u`` (int32) and ``valid`` (bool), and the same seven arrays
+    replicated at ``(e_pad,)``.  ``fn(sharded, replicated)`` counts its
+    rows ``block`` at a time under global ``i < j`` indices, shared
+    endpoints excluded, and ends in one all-reduce over every mesh
+    axis."""
+    cross_fn = {"sign": segments_cross, "bool": segments_cross_bool}[
+        predicate]
+    n_dev = mesh_size(mesh)
+    e_pad = -(-n_edges // (n_dev * block)) * (n_dev * block)
+    per = e_pad // n_dev
+
+    def fn(sh, rep):
+        gx1, gy1, gx2, gy2, gv, gu, gok = rep
+        dev = gx1.device
+        row0 = mesh_rank(mesh) * per
+        col_idx = torch.arange(e_pad, device=dev)
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        for i0 in range(0, per, block):
+            bx1, by1, bx2, by2, bv, bu, bok = (a[0, i0:i0 + block]
+                                               for a in sh)
+            gi = row0 + i0 + torch.arange(block, device=dev)
+            cross = cross_fn(
+                bx1[:, None], by1[:, None], bx2[:, None], by2[:, None],
+                gx1[None, :], gy1[None, :], gx2[None, :], gy2[None, :])
+            shared = ((bv[:, None] == gv[None, :])
+                      | (bv[:, None] == gu[None, :])
+                      | (bu[:, None] == gv[None, :])
+                      | (bu[:, None] == gu[None, :]))
+            mask = (gi[:, None] < col_idx[None, :]) & bok[:, None] \
+                & gok[None, :] & ~shared
+            total = total + (mask & cross).sum()
+        return psum_all(mesh, total)
+
+    dtypes = (torch.float32,) * 4 + (torch.int32,) * 2 + (torch.bool,)
+    sh = tuple(_meta((1, per), d) for d in dtypes)
+    rep = tuple(_meta((e_pad,), d) for d in dtypes)
+    return fn, (sh, rep)

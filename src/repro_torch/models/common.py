@@ -16,6 +16,8 @@ recomputed in the backward under ``remat``): both through non-reentrant
 
 from __future__ import annotations
 
+import contextlib
+
 from typing import Callable
 
 import numpy as np
@@ -66,6 +68,103 @@ def params_from_reference(tree, *, device=None):
     return torch.tensor(np.asarray(tree, np.float32), device=dev)
 
 
+def settle_partial(x):
+    """A ``DTensor`` whose placements hold a pending reduction (the
+    row-sharded embedding lookup's masked partial sums) reduced right
+    away, while the reduction still has what it needs; any other tensor
+    as it is."""
+    places = getattr(x, "placements", None)
+    if places is None or not any(p.is_partial() for p in places):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in places])
+
+
+def per_rank(fn, sharded, replicated=(), *, out: str = "rows"):
+    """``fn(*sharded, *replicated)`` on each rank's rows.
+
+    On plain tensors it is that call.  On ``DTensor`` s, ``sharded``
+    (tensors of one leading dim, split over the batch axes) become each
+    rank's own rows, ``replicated`` (tensors) whole copies, and ``fn``
+    runs on those local tensors, as a data-parallel rank runs its share:
+    a loop inside ``fn`` over chunks of rows walks the local rows only,
+    never slicing across shards.  Its result (a tensor or a tuple) comes
+    back as ``DTensor`` s: ``out="rows"`` rows of the same split,
+    ``out="sum"`` a sum over the rows (a pending sum over the batch axes).
+    A replicated input's gradient is summed over the batch axes."""
+    lead = sharded[0]
+    if not hasattr(lead, "placements"):
+        return fn(*sharded, *replicated)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = lead.device_mesh
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in lead.placements]
+    split = [isinstance(p, Shard) for p in rows]
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if s else Replicate() for s in split]
+    # this rank's rows of the split: [r * per, (r + 1) * per)
+    n_split, r = 1, 0
+    for d, (s, c) in enumerate(zip(split, mesh.get_coordinate())):
+        if s:
+            n_split, r = n_split * mesh.size(d), r * mesh.size(d) + c
+    per = -(-lead.shape[0] // n_split)
+
+    def own_rows(t):
+        # any other split goes through a whole copy first (a layout the
+        # data axes do not split as ``rows`` has no cheaper way there)
+        if tuple(t.placements) != tuple(rows):
+            t = t.redistribute(mesh, whole)
+        loc = t.redistribute(mesh, rows).to_local()
+        if loc.shape[0] != min(per, max(lead.shape[0] - r * per, 0)):
+            # a DTensor that splits these rows otherwise: cut them here
+            loc = t.redistribute(mesh, whole).to_local()[r * per:
+                                                         (r + 1) * per]
+        return loc
+    local = [own_rows(t) for t in sharded]
+    shared = [t.redistribute(mesh, whole).to_local(grad_placements=grad)
+              if hasattr(t, "placements") else t for t in replicated]
+    res = fn(*local, *shared)
+
+    def wrap(o):
+        if out == "sum":
+            return DTensor.from_local(o, mesh, [Partial() if s else
+                                                Replicate() for s in split],
+                                      run_check=False)
+        shape = (lead.shape[0],) + tuple(o.shape[1:])
+        stride = [1] * len(shape)
+        for d in range(len(shape) - 2, -1, -1):
+            stride[d] = stride[d + 1] * shape[d + 1]
+        return DTensor.from_local(o, mesh, rows, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=tuple(stride))
+    return tuple(map(wrap, res)) if isinstance(res, tuple) else wrap(res)
+
+
+def row_chunks(n_chunks: int, *tensors):
+    """``tensors`` (one leading dim) in ``n_chunks`` chunks of rows: of a
+    plain tensor, consecutive slices; of ``DTensor`` s split on dim 0,
+    each rank's own rows in consecutive slices, each chunk again a
+    ``DTensor`` of that split (so a chunk never cuts across shards and a
+    sum over the chunks is the sum over every row)."""
+    lead = tensors[0]
+    if not hasattr(lead, "placements"):
+        T = lead.shape[0]
+        chunk = -(-T // n_chunks)
+        return [tuple(t[c0:c0 + chunk] for t in tensors)
+                for c0 in range(0, T, chunk)]
+    from torch.distributed.tensor import DTensor
+
+    mesh, places = lead.device_mesh, lead.placements
+    local = [t.redistribute(mesh, places).to_local() for t in tensors]
+    T = local[0].shape[0]
+    chunk = -(-T // n_chunks)
+    return [tuple(DTensor.from_local(t[c0:c0 + chunk], mesh, places,
+                                     run_check=False) for t in local)
+            for c0 in range(0, T, chunk)]
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
     """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` over the last dim, in
     float32, returned in ``x``'s dtype."""
@@ -106,7 +205,8 @@ def softmax_xent(logits, labels, mask=None):
     float32), over the positions where ``mask`` is set when given."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    picked = settle_partial(
+        torch.gather(logits, -1, labels[..., None].long()))[..., 0]
     nll = lse - picked
     if mask is not None:
         mask = mask.float()
@@ -114,20 +214,53 @@ def softmax_xent(logits, labels, mask=None):
     return nll.mean()
 
 
+def _tracer():
+    """The dry run's recorder while it traces a step (the active dispatch
+    mode with a ``trip_cache``), else ``None``."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    for mode in _get_current_dispatch_mode_stack():
+        if getattr(mode, "trip_cache", None) is not None:
+            return mode
+    return None
+
+
 def _recorded(fn, *args, remat: bool = True):
     """``fn(*args)``; while autograd records and ``remat`` is set, its
     intermediates are dropped and recomputed in the backward (only
-    ``args`` are kept)."""
-    if remat and torch.is_grad_enabled():
+    ``args`` are kept).  Under the dry run's trace, the recompute runs
+    under the trace's modes and a repeated trip replays its first
+    trip's costs (``roofline.analysis.TripCache``)."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn(*args)
+    tracer = _tracer()
+    if tracer is None:
         return checkpoint(fn, *args, use_reentrant=False,
                           preserve_rng_state=False)
-    return fn(*args)
+
+    def run(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(),
+                                              tracer.recompute_context()))
+    return tracer.trip_cache.call(fn, args, run)
+
+
+def _picked(logits, labels):
+    """``logits[i, labels[i]]``.  On a ``DTensor`` (vocabulary split over
+    ranks) it is a masked sum over the vocabulary, which stays split:
+    ``gather``'s backward makes a zero tensor of the whole logits on
+    every rank."""
+    if not hasattr(logits, "placements"):
+        return torch.gather(logits, -1, labels[:, None].long())[:, 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(vocab == labels[:, None].long(), logits,
+                       0.0).sum(dim=-1)
 
 
 def _xent_terms(logits_fn, xc, lc, mc):
     logits = logits_fn(xc).float()
     lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, lc[:, None].long())[:, 0]
+    picked = _picked(logits, lc)
     nll = (lse - picked) * mc
     zl = (lse ** 2) * mc
     return nll.sum(), zl.sum(), mc.sum()
@@ -148,13 +281,11 @@ def chunked_softmax_xent(logits_fn: Callable, x, labels, mask, *,
     """
     T = x.shape[0]
     assert T % n_chunks == 0, (T, n_chunks)
-    chunk = T // n_chunks
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     loss_sum, z_sum, count = zero, zero, zero
     mask = mask.float()
-    for c0 in range(0, T, chunk):
-        nll, zl, n = _recorded(_xent_terms, logits_fn, x[c0:c0 + chunk],
-                               labels[c0:c0 + chunk], mask[c0:c0 + chunk])
+    for xc, lc, mc in row_chunks(n_chunks, x, labels, mask):
+        nll, zl, n = _recorded(_xent_terms, logits_fn, xc, lc, mc)
         loss_sum, z_sum, count = loss_sum + nll, z_sum + zl, count + n
     denom = torch.clamp_min(count, 1.0)
     return loss_sum / denom + z_loss * z_sum / denom, count

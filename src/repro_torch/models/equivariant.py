@@ -46,6 +46,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from repro_torch.models import common, so3
 
@@ -240,17 +241,22 @@ def nequip_forward(params, batch, cfg: NequIPConfig, *, n_graphs: int = 1):
     rbf = radial_basis(r, cfg.n_rbf, cfg.cutoff).to(cfg.dtype)
     w_edge = torch.where(emask[:, None], 1.0, 0.0)
 
-    E = src.shape[0]
-    Ec = E // _pick_chunks(E, cfg.edge_chunk)
-
-    for layer in params["layers"]:
-        radial_w = _mlp2_apply(layer["radial"], rbf) * w_edge
+    def messages(src, dst, Y, radial_w, f):
+        E = src.shape[0]
+        Ec = E // _pick_chunks(E, cfg.edge_chunk)
         agg = None
         for c0 in range(0, E, Ec):
             part = common._recorded(
                 _nequip_chunk, f, src[c0:c0 + Ec], dst[c0:c0 + Ec],
                 Y[c0:c0 + Ec], radial_w[c0:c0 + Ec], cfg)
             agg = part if agg is None else agg + part
+        return agg
+
+    for layer in params["layers"]:
+        radial_w = _mlp2_apply(layer["radial"], rbf) * w_edge
+        # on sharded edges, each rank sums its own edges' messages
+        agg = common.per_rank(messages, (src, dst, Y, radial_w), (f,),
+                              out="sum")
 
         # per-degree self-interaction + message mix, gated nonlinearity
         gates = torch.sigmoid(f[:, 0, :] @ layer["gate"])
@@ -423,6 +429,21 @@ def _rotate(x, Ds, rows, cols, *, transpose=False):
     return torch.cat(outs, dim=1)
 
 
+def _shard_channels(f, cfg: EquiformerConfig):
+    """The node state ``(N, irrep, C)`` with its channels split over the
+    mesh's ``model`` axis (``Shard(2)``; ``Replicate()`` on the other
+    axes) where ``cfg.shard_channels`` asks for it and ``f`` is a
+    ``DTensor``: the reference's sharding constraint ``P(None, None,
+    "model")``.  A plain tensor is returned as it is."""
+    places = getattr(f, "placements", None)
+    if not cfg.shard_channels or places is None:
+        return f
+    from torch.distributed.tensor import Replicate, Shard
+    names = f.device_mesh.mesh_dim_names
+    return f.redistribute(f.device_mesh, [Shard(2) if n == "model"
+                                          else Replicate() for n in names])
+
+
 def _equiformer_chunk(f, s, d, al, be, rg, wm, layer, cfg: EquiformerConfig):
     """One edge chunk's messages (Ec, irrep, C) and attention logits
     (Ec, H); the per-degree Wigner blocks are made here, per chunk."""
@@ -465,19 +486,17 @@ def equiformer_forward(params, batch, cfg: EquiformerConfig, *,
     C = cfg.d_hidden
     sl = so3.irrep_slices(cfg.l_max)
 
-    f = _with_scalars(params["species_embed"].index_select(
-        0, batch["species"].long()).to(cfg.dtype), cfg.irrep_dim)
+    f = _shard_channels(_with_scalars(params["species_embed"].index_select(
+        0, batch["species"].long()).to(cfg.dtype), cfg.irrep_dim), cfg)
     r, unit, emask = _edge_geometry(pos, src, dst, batch["edge_mask"])
     alpha, beta = so3.edge_alignment_angles(unit)
     rbf = radial_basis(r, cfg.n_rbf, cfg.cutoff).to(cfg.dtype)
     w_edge = torch.where(emask, 1.0, 0.0)
 
-    E = src.shape[0]
-    Ec = E // _pick_chunks(E, cfg.edge_chunk)
-
-    for layer in params["layers"]:
-        layer = _cast(layer, cfg.dtype)
-        radial_g = _mlp2_apply(layer["radial"], rbf)       # (E, C)
+    def messages(src, dst, alpha, beta, radial_g, w_edge, f, *leaves):
+        layer = tree_unflatten(list(leaves), spec)
+        E = src.shape[0]
+        Ec = E // _pick_chunks(E, cfg.edge_chunk)
         msgs, logits = [], []
         for c0 in range(0, E, Ec):
             cut = slice(c0, c0 + Ec)
@@ -486,8 +505,17 @@ def equiformer_forward(params, batch, cfg: EquiformerConfig, *,
                 beta[cut], radial_g[cut], w_edge[cut], layer, cfg)
             msgs.append(y)
             logits.append(logit)
-        msgs = torch.cat(msgs)
-        attn = segment_softmax(torch.cat(logits), dst, N)  # (E, H)
+        return torch.cat(msgs), torch.cat(logits)
+
+    for layer in params["layers"]:
+        layer = _cast(layer, cfg.dtype)
+        radial_g = _mlp2_apply(layer["radial"], rbf)       # (E, C)
+        # on sharded edges, each rank makes its own edges' messages
+        leaves, spec = tree_flatten(layer)
+        msgs, logits = common.per_rank(
+            messages, (src, dst, alpha, beta, radial_g, w_edge),
+            (f, *leaves))
+        attn = segment_softmax(logits, dst, N)             # (E, H)
         attn = attn.repeat_interleave(C // cfg.n_heads, dim=1)  # (E, C)
         agg = _segment_sum(msgs * attn[:, None, :], dst, N)
 
@@ -501,7 +529,7 @@ def equiformer_forward(params, batch, cfg: EquiformerConfig, *,
         gates2 = torch.sigmoid(f[:, 0, :] @ layer["ffn_gate"])
         ffn = [_gated(f[:, sl[l], :] @ layer["ffn_w1"][l], gates2, l, C)
                @ layer["ffn_w2"][l] for l in range(cfg.l_max + 1)]
-        f = f + torch.cat(ffn, dim=1)
+        f = _shard_channels(f + torch.cat(ffn, dim=1), cfg)
 
     readout = _cast(params["readout"], torch.float32)
     node_e = _mlp2_apply(readout, f[:, 0, :].to(torch.float32))[:, 0]

@@ -149,7 +149,8 @@ def numpy_params(cfg: XDeepFMConfig, seed: int) -> dict:
 
 def _lookup(params, ids, cfg: XDeepFMConfig):
     """ids: (B, n_fields) global (offset) ids -> (B, n_fields, D)."""
-    return F.embedding(ids, params["embed"]).to(cfg.dtype)
+    return common.settle_partial(
+        F.embedding(ids, params["embed"])).to(cfg.dtype)
 
 
 def _cin_rows(x0, cin_out, *cin):
@@ -180,18 +181,22 @@ def cin_chunk_rows(cfg: XDeepFMConfig) -> int:
 
 def _cin(x0, params, cfg: XDeepFMConfig):
     """Compressed Interaction Network.  ``x0``: ``(B, m, D)``; returns
-    ``(B,)``.  Rows go :func:`cin_chunk_rows` at a time; under autograd
-    each chunk keeps only its inputs and is recomputed in the
-    backward."""
-    B = x0.shape[0]
+    ``(B,)``.  Rows go :func:`cin_chunk_rows` at a time (on a sharded
+    batch, each rank's own rows: :func:`~repro_torch.models.common.
+    per_rank`); under autograd each chunk keeps only its inputs and is
+    recomputed in the backward."""
     cin = [w.to(cfg.dtype) for w in params["cin"]]
     cin_out = params["cin_out"].to(cfg.dtype)
     rows = cin_chunk_rows(cfg)
-    x0t = x0.transpose(0, 1)                              # (m, B, D)
-    pieces = [common._recorded(_cin_rows, x0t[:, s:s + rows].contiguous(),
-                               cin_out, *cin)
-              for s in range(0, B, rows)]
-    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+
+    def chunks(x0, cin_out, *cin):
+        x0t = x0.transpose(0, 1)                          # (m, B, D)
+        pieces = [common._recorded(_cin_rows,
+                                   x0t[:, s:s + rows].contiguous(),
+                                   cin_out, *cin)
+                  for s in range(0, x0.shape[0], rows)]
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+    return common.per_rank(chunks, (x0,), (cin_out, *cin))
 
 
 def _dnn(x0, params, cfg: XDeepFMConfig):
@@ -204,7 +209,8 @@ def _dnn(x0, params, cfg: XDeepFMConfig):
 def xdeepfm_logits(params, ids, cfg: XDeepFMConfig):
     """ids: (B, n_fields) int offset ids -> CTR logits (B,), float32."""
     x0 = _lookup(params, ids, cfg)
-    linear = params["linear"][ids.long()].sum(dim=-1)
+    linear = common.settle_partial(
+        params["linear"][ids.long()]).sum(dim=-1)
     cin = _cin(x0, params, cfg)
     h = _dnn(x0, params, cfg)
     dnn = (h @ params["mlp_out"].to(cfg.dtype))[:, 0]

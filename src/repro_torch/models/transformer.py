@@ -299,6 +299,68 @@ def _attend_chunked(q, k, v, cfg, *, q_positions, kv_positions, is_global):
     return torch.cat(outs, dim=1).reshape(B, S, Hp, dh)
 
 
+def _model_split(x, dim: int):
+    """``(mesh dim of the model axis, its size, this rank's coordinate
+    on it)`` when ``x`` is a ``DTensor`` split on ``dim`` over the
+    ``model`` axis alone, else ``None``."""
+    places = getattr(x, "placements", None)
+    if places is None:
+        return None
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or ()
+    split = [i for i, p in enumerate(places) if p.is_shard(dim)]
+    if len(split) != 1 or names[split[0]] != "model":
+        return None
+    d = split[0]
+    return d, mesh.size(d), mesh.get_coordinate()[d]
+
+
+def _split_heads(x, n_heads: int, d_head: int):
+    """``(B, S, n_heads * d_head) -> (B, S, n_heads, d_head)``.  A
+    ``DTensor`` whose last dim is split over ``model`` by whole heads is
+    reshaped shard by shard (the split moves to the heads), a view that
+    DTensor's own rules may refuse."""
+    B, S = x.shape[:2]
+    ms = _model_split(x, 2)
+    if ms is None or n_heads % ms[1]:
+        return x.reshape(B, S, n_heads, d_head)
+    from torch.distributed.tensor import DTensor
+    loc = x.to_local()
+    loc = loc.reshape(*loc.shape[:2], n_heads // ms[1], d_head)
+    shape = (B, S, n_heads, d_head)
+    return DTensor.from_local(loc, x.device_mesh, x.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=(S * n_heads * d_head,
+                                      n_heads * d_head, d_head, 1))
+
+
+def _attend(q, k, v, cfg, **kw):
+    """:func:`_attend_chunked`; on ``DTensor`` s whose query heads split
+    over the ``model`` axis (keys and values replicated over it, the
+    Megatron GQA layout), each rank attends its own heads with the kv
+    heads they read, as a tensor-parallel rank does."""
+    ms = _model_split(q, 2)
+    if ms is None or _model_split(k, 2) is not None:
+        return _attend_chunked(q, k, v, cfg, **kw)
+    from torch.distributed.tensor import DTensor, Partial
+    d, n, r = ms
+    Hp, Kv = q.shape[2], k.shape[2]
+    Hl, G = Hp // n, Hp // Kv
+    if Hl % G and G % Hl:
+        return _attend_chunked(q, k, v, cfg, **kw)
+    kv0, nkv = r * Hl // G, max(Hl // G, 1)
+    mesh = q.device_mesh
+    kv_places = list(q.placements)
+    kv_places[d] = k.placements[d]
+    grad = list(kv_places)
+    grad[d] = Partial()          # each rank's slice: a sum over the ranks
+    kl, vl = (t.redistribute(mesh, kv_places).to_local(
+        grad_placements=grad)[:, :, kv0:kv0 + nkv] for t in (k, v))
+    out = _attend_chunked(q.to_local(), kl, vl, cfg, **kw)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False,
+                              shape=q.shape, stride=q.stride())
+
+
 def _attend_decode(q, k_cache, v_cache, cfg, *, pos: int, is_global):
     """One token against the cache: q ``(B, 1, Hp, dh)``, caches ``(B,
     Smax, Kv, dh)`` -> ``(B, 1, Hp * dh)``."""
@@ -409,6 +471,21 @@ class Transformer(nn.Module):
                 setattr(self, name, p)
         self.layers = nn.ParameterDict(layers)
 
+    @classmethod
+    def from_params(cls, cfg: TransformerConfig, tree: dict) -> "Transformer":
+        """The model of ``cfg`` around the tensors of ``tree`` (the
+        reference's pytree layout, :meth:`param_tree`'s), shared, not
+        copied: nothing is allocated (the dry run's cells pass ``DTensor``
+        shards)."""
+        model = cls.__new__(cls)
+        nn.Module.__init__(model)
+        model.cfg = cfg.ensure_padded()
+        for name in ("embed", "ln_f", "unembed"):
+            setattr(model, name, nn.Parameter(tree[name]))
+        model.layers = nn.ParameterDict(
+            {k: nn.Parameter(v) for k, v in tree["layers"].items()})
+        return model
+
     @property
     def device(self) -> torch.device:
         return self.embed.device
@@ -470,6 +547,11 @@ class Transformer(nn.Module):
                 "ln_f": self.ln_f, "unembed": self.unembed}
 
     def _embed(self, tokens):
+        if hasattr(self.embed, "placements"):
+            # a row-split table: the lookup's own rule (masked partial
+            # sums), not indexing's, which replicates the table
+            return common.settle_partial(F.embedding(
+                tokens.long(), self.embed)).to(self.cfg.dtype)
         return self.embed[tokens.long()].to(self.cfg.dtype)
 
     def _lm_logits(self, x):
@@ -490,7 +572,7 @@ class Transformer(nn.Module):
             q = q + c(layer["bq"])
             k = k + c(layer["bk"])
             v = v + c(layer["bv"])
-        q = q.reshape(B, S, Hp, dh)
+        q = _split_heads(q, Hp, dh)
         k = k.reshape(B, S, Kv, dh)
         v = v.reshape(B, S, Kv, dh)
         if cfg.qk_norm:
@@ -529,7 +611,7 @@ class Transformer(nn.Module):
         if cache is not None:
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
-        attn = _attend_chunked(q, k, v, cfg, q_positions=positions,
+        attn = _attend(q, k, v, cfg, q_positions=positions,
                                kv_positions=positions, is_global=is_global)
         x = x + attn.reshape(B, S, -1) @ layer["wo"].to(cfg.dtype)
         ffn, aux = self._ffn(x, layer)

@@ -8,7 +8,8 @@ int8 gradient compression.
 :func:`apply_updates` is functional, as the reference's;
 :func:`apply_updates_` computes the same step in place, block by block
 (a trainer at full width has no room for a second copy of its
-parameters and moments), and :func:`int8_roundtrip_` overwrites each
+parameters and moments; on ``DTensor`` leaves each rank updates its own
+shards, the global norm summed over the ranks), and :func:`int8_roundtrip_` overwrites each
 gradient with ``decompress_int8(compress_int8(.))`` of it, row block by
 row block.
 
@@ -171,8 +172,14 @@ ROWS = 1 << 16
 CHUNK = 256
 
 
+def _local(t):
+    """A ``DTensor``'s local shard (a plain tensor as it is): the in-place
+    step is elementwise, so each rank updates its own shard."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def _blocks(t, block):
-    flat = t.view(-1)
+    flat = _local(t).view(-1)
     return [flat[i:i + block] for i in range(0, flat.numel(), block)]
 
 
@@ -184,14 +191,20 @@ def apply_updates_(params, grads, state, cfg: AdamWConfig):
     functional step's operations in its order, so the results are
     bit-equal to it.  Every leaf is a contiguous float32 tensor.  Returns
     the metrics ``{"grad_norm", "lr"}``."""
-    gnorm = global_norm(grads)
+    leaves = [_leaves(t) for t in (params, grads, state["m"], state["v"])]
+    # a DTensor gradient takes its parameter's layout first (the
+    # data-parallel reduction of a Partial gradient)
+    leaves[1] = [g.redistribute(p.device_mesh, p.placements)
+                 if hasattr(g, "placements") and g.placements != p.placements
+                 else g for p, g in zip(leaves[0], leaves[1])]
+    gnorm = global_norm(leaves[1])
     scale = _clip_scale(gnorm, cfg.clip_norm)
     step = state["step"] + 1
     lr = cosine_schedule(cfg)(step)
     step_f = step.to(torch.float32)
     b1c = 1.0 - cfg.b1 ** step_f
     b2c = 1.0 - cfg.b2 ** step_f
-    leaves = [_leaves(t) for t in (params, grads, state["m"], state["v"])]
+    scale, lr, b1c, b2c = (_local(t) for t in (scale, lr, b1c, b2c))
     for p, g, m, v in zip(*leaves):
         for t in (p, g, m, v):
             if t.dtype != torch.float32:

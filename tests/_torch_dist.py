@@ -451,7 +451,8 @@ def distributed(world):
     parity matrix's three mesh cells and the pairwise drivers on every
     family, the near-parallel layouts through the distributed front door,
     the serving mesh policy, a distributed search step, the
-    range-partitioned embedding lookup and, at 4 ranks,
+    range-partitioned embedding lookup (one axis, and the model axis of
+    the 2-D mesh) and, at 4 ranks,
     ``examples/torch/distributed_eval.py``'s counts."""
     import torch
 
@@ -527,6 +528,12 @@ def distributed(world):
     out["embedding_lookup"] = sharded_embedding_lookup(
         make_mesh((world,), ("model",), device=dev), torch.from_numpy(table),
         torch.from_numpy(ids)).tolist()
+    if len(shape) == 2:
+        # the table's rows over the model axis of the (2, world/2) mesh,
+        # replicated over data: the sum runs over that axis's sub-group
+        out["embedding_lookup_2d"] = sharded_embedding_lookup(
+            mesh2, torch.from_numpy(table), torch.from_numpy(ids),
+            axis="model").tolist()
     if world == 4:
         # examples/torch/distributed_eval.py on the same (2, 2) mesh it
         # makes at 4 ranks
@@ -611,3 +618,71 @@ def merge_decode(world):
     mesh = make_mesh((world,), ("model",), device=DEVICE)
     q, k, v = (torch.from_numpy(a) for a in merge_inputs())
     return merge_decode_attention(mesh, q, k, v, MERGE_POS).tolist()
+
+
+# ---------------------------------------------------------------------------
+# EquiformerV2 with its node state's channels split over the model axis
+# ---------------------------------------------------------------------------
+
+def channels_inputs():
+    """EquiformerV2's smoke config with ``shard_channels``, its numpy
+    parameters (seed 5) and a batch of two graphs (32 nodes, 96 edges,
+    the last 8 masked) from seed 6."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import equivariant as eqv
+
+    cfg = dataclasses.replace(get_arch("equiformer-v2").smoke_config,
+                              shard_channels=True)
+    rng = np.random.default_rng(6)
+    n, e = 32, 96
+    src = rng.integers(0, n, e)
+    dst = (src + rng.integers(1, n, e)) % n
+    batch = {"positions": rng.normal(size=(n, 3)).astype(np.float32) * 2,
+             "species": rng.integers(0, cfg.n_species, n).astype(np.int32),
+             "edge_src": src.astype(np.int32),
+             "edge_dst": dst.astype(np.int32),
+             "edge_mask": np.arange(e) < e - 8,
+             "node_mask": np.ones(n, bool),
+             "graph_id": (np.arange(n) >= n // 2).astype(np.int32)}
+    return cfg, eqv.numpy_params(cfg, 5), batch
+
+
+def equiformer_channels(world):
+    """EquiformerV2's forward on a ``(1, world)`` ``DeviceMesh`` over the
+    gloo ranks, every input replicated and the node state's channels
+    split over ``model`` (``shard_channels``): the per-graph energies.
+    The ops without a DTensor rule run on replicated inputs."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import equivariant as eqv
+    from repro_torch.models.common import params_from_reference
+    from repro_torch.roofline.analysis import (ReplicatingCalls,
+                                               replicate_fallbacks)
+
+    cfg, params, batch = channels_inputs()
+    mesh = init_device_mesh("cpu", (1, world),
+                            mesh_dim_names=("data", "model"))
+
+    def rep(t):
+        return distribute_tensor(t, mesh, [Replicate(), Replicate()])
+
+    aten = torch.ops.aten
+    replicate_fallbacks([aten.index_add.default, aten.scatter_reduce.two])
+    tparams = _tree(params_from_reference(params, device=DEVICE), rep)
+    tbatch = {k: rep(torch.from_numpy(v)) for k, v in batch.items()}
+    with ReplicatingCalls(), implicit_replication():
+        energies = eqv.equiformer_forward(tparams, tbatch, cfg, n_graphs=2)
+    return energies.full_tensor().tolist()
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree(v, fn) for v in tree)
+    return fn(tree)

@@ -198,13 +198,26 @@ def test_sharded_embedding_lookup_matches_take(runs, ref, world):
 
 
 def test_sharded_embedding_lookup_takes_a_one_axis_mesh():
-    """A mesh of two axes raises (the reference replicates over the
-    second; the port does not take one yet) instead of a wrong lookup."""
+    """A mesh of two axes shards over the named axis and replicates over
+    the other (the reference's ``P(axis, None)`` in-spec): on a (1, 1)
+    mesh the lookup is ``table[ids]``; an axis the mesh lacks raises."""
     mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
     table, ids = dist_.embedding_inputs()
-    with pytest.raises(ValueError, match="one-axis mesh"):
+    got = sharded_embedding_lookup(mesh, torch.from_numpy(table),
+                                   torch.from_numpy(ids))
+    np.testing.assert_array_equal(got.numpy(), table[ids])
+    with pytest.raises(ValueError, match="no axis"):
         sharded_embedding_lookup(mesh, torch.from_numpy(table),
-                                 torch.from_numpy(ids))
+                                 torch.from_numpy(ids), axis="x")
+
+
+def test_sharded_embedding_lookup_on_a_two_axis_mesh(runs):
+    """At 4 ranks, a (2, 2) mesh: rows split over ``model``, replicated
+    over ``data``, the sum over the model axis's sub-group only; every
+    rank gets ``table[ids]`` exactly."""
+    table, ids = dist_.embedding_inputs()
+    np.testing.assert_array_equal(
+        np.asarray(runs[4]["embedding_lookup_2d"], np.float32), table[ids])
 
 
 def test_distributed_eval_example_matches_oracles(runs, ref):
