@@ -67,6 +67,7 @@ from repro_torch.core.validate import (BackendUnavailableError,  # noqa: F401
 from repro_torch.launch.admission import CancelToken  # noqa: F401
 from repro_torch.launch.session import EvalSession
 from repro_torch.search.gradient import GradientSearch, SearchResult
+from repro_torch.spans import span
 
 __all__ = [
     "ALL_METRICS", "BackendUnavailableError", "CancelToken",
@@ -267,53 +268,57 @@ class Evaluator:
         ``.unbatch()`` for per-layout scores).  Plans from the whole batch
         when ``plan`` is omitted -- hot loops should plan once and pass
         it in."""
-        batch_pos = np.asarray(batch_pos, np.float32)
-        edges = np.asarray(edges, np.int32)
-        if batch_pos.ndim != 3:
-            raise ValueError("evaluate_batch wants a (B, V, 2) batch; "
-                             f"got shape {batch_pos.shape}")
-        batch_pos, edges, flags = validate_batch(
-            batch_pos, edges, mode=self.config.validation)
-        n_v, n_e = batch_pos.shape[1], edges.shape[0]
-        backend = self.config.backend
-        degenerate = n_v == 0 or n_e == 0
-        if backend == "graph_sharded" and not degenerate:
-            # spatial partitioning is per layout: each member is the
-            # sharded unit, so the batch axis is a loop of graph-sharded
-            # dispatches on one flat plan (every rank sweeps the flat top
-            # capacity)
-            from repro_torch.distributed.graph_sharded import \
-                evaluate_graph_sharded
+        with span("batch"):
+            batch_pos = np.asarray(batch_pos, np.float32)
+            edges = np.asarray(edges, np.int32)
+            if batch_pos.ndim != 3:
+                raise ValueError("evaluate_batch wants a (B, V, 2) batch; "
+                                 f"got shape {batch_pos.shape}")
+            with span("batch.validate"):
+                batch_pos, edges, flags = validate_batch(
+                    batch_pos, edges, mode=self.config.validation)
+            n_v, n_e = batch_pos.shape[1], edges.shape[0]
+            backend = self.config.backend
+            degenerate = n_v == 0 or n_e == 0
+            if backend == "graph_sharded" and not degenerate:
+                # spatial partitioning is per layout: each member is the
+                # sharded unit, so the batch axis is a loop of graph-sharded
+                # dispatches on one flat plan (every rank sweeps the flat top
+                # capacity)
+                from repro_torch.distributed.graph_sharded import \
+                    evaluate_graph_sharded
+                if plan is None:
+                    with span("batch.plan"):
+                        plan = engine.plan_readability(
+                            batch_pos, edges,
+                            **self.config.plan_kwargs(tier_default=False))
+                results = [evaluate_graph_sharded(self._mesh(), plan, member,
+                                                  edges)
+                           for member in batch_pos]
+                res = ReadabilityScores(*(
+                    None if results[0][k] is None
+                    else torch.stack([r[k] for r in results])
+                    for k in range(len(ReadabilityScores._fields))))
+                return host_batch(res, n_v, n_e, flags)
             if plan is None:
-                plan = engine.plan_readability(
-                    batch_pos, edges,
-                    **self.config.plan_kwargs(tier_default=False))
-            results = [evaluate_graph_sharded(self._mesh(), plan, member,
-                                              edges)
-                       for member in batch_pos]
-            res = ReadabilityScores(*(
-                None if results[0][k] is None
-                else torch.stack([r[k] for r in results])
-                for k in range(len(ReadabilityScores._fields))))
+                with span("batch.plan"):
+                    plan = self.plan(batch_pos, edges)
+            if backend == "distributed" and not degenerate:
+                from repro_torch.distributed.batched import \
+                    evaluate_layouts_sharded
+                res = evaluate_layouts_sharded(self._mesh(), plan, batch_pos,
+                                               edges)
+                return host_batch(res, n_v, n_e, flags)
+            valid = {}
+            if degenerate:
+                # pad to the engine's one-row minimum and mask the padding;
+                # a mesh buys nothing at this size
+                batch_pos, edges = _pad_degenerate(batch_pos, edges)
+                valid = dict(n_valid_vertices=n_v, n_valid_edges=n_e)
+            res = engine.evaluate_layouts(plan, batch_pos, edges,
+                                          use_kernels=self.config.use_kernels,
+                                          device=self.device, **valid)
             return host_batch(res, n_v, n_e, flags)
-        if plan is None:
-            plan = self.plan(batch_pos, edges)
-        if backend == "distributed" and not degenerate:
-            from repro_torch.distributed.batched import \
-                evaluate_layouts_sharded
-            res = evaluate_layouts_sharded(self._mesh(), plan, batch_pos,
-                                           edges)
-            return host_batch(res, n_v, n_e, flags)
-        valid = {}
-        if degenerate:
-            # pad to the engine's one-row minimum and mask the padding;
-            # a mesh buys nothing at this size
-            batch_pos, edges = _pad_degenerate(batch_pos, edges)
-            valid = dict(n_valid_vertices=n_v, n_valid_edges=n_e)
-        res = engine.evaluate_layouts(plan, batch_pos, edges,
-                                      use_kernels=self.config.use_kernels,
-                                      device=self.device, **valid)
-        return host_batch(res, n_v, n_e, flags)
 
     # -- search -------------------------------------------------------------
 

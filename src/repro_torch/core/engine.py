@@ -69,6 +69,7 @@ from repro_torch.core.scores import ReadabilityScores
 from repro_torch.kernels.ops import occlusion_count_op, strip_reversal_op
 from repro_torch.kernels.strip_reversal import (fused_reversal_block,  # noqa: F401
                                                 strip_reversal_rows)
+from repro_torch.spans import span
 
 ALL_METRICS = ("node_occlusion", "minimum_angle", "edge_length_variation",
                "edge_crossing", "edge_crossing_angle")
@@ -311,11 +312,12 @@ def device_inputs(pos, edges, device=None, dtype=torch.float32):
         dev = pos.device if device is None else torch.device(device)
     else:
         dev = resolve_device(device)
-    pos = torch.as_tensor(_host(pos, np.float32) if not isinstance(
-        pos, torch.Tensor) else pos).to(dev, dtype)
-    if edges is not None:
-        edges = torch.as_tensor(_host(edges, np.int32) if not isinstance(
-            edges, torch.Tensor) else edges).to(dev, torch.int32)
+    with span("engine.upload"):
+        pos = torch.as_tensor(_host(pos, np.float32) if not isinstance(
+            pos, torch.Tensor) else pos).to(dev, dtype)
+        if edges is not None:
+            edges = torch.as_tensor(_host(edges, np.int32) if not isinstance(
+                edges, torch.Tensor) else edges).to(dev, torch.int32)
     return pos, edges
 
 
@@ -369,23 +371,27 @@ def _evaluate(plan: ReadabilityPlan, pos, edges, use_kernels: bool,
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
 
     if "node_occlusion" in m:
-        if use_kernels:
-            # exact all-pairs kernel: same count as the grid, no
-            # capacities to overflow
-            cnt = occlusion_count_op(pos, plan.radius, valid=vertex_valid)
-        else:
-            cnt, ov = count_occlusions_gridded(
-                pos, plan.radius, plan.grid_origin, plan.grid_nx,
-                plan.grid_ny, plan.cell_cap, valid=vertex_valid,
-                cell_size=plan.grid_cell_size)
-            overflow = overflow + ov
+        with span("engine.occlusion"):
+            if use_kernels:
+                # exact all-pairs kernel: same count as the grid, no
+                # capacities to overflow
+                cnt = occlusion_count_op(pos, plan.radius,
+                                         valid=vertex_valid)
+            else:
+                cnt, ov = count_occlusions_gridded(
+                    pos, plan.radius, plan.grid_origin, plan.grid_nx,
+                    plan.grid_ny, plan.cell_cap, valid=vertex_valid,
+                    cell_size=plan.grid_cell_size)
+                overflow = overflow + ov
         out["node_occlusion"] = cnt
     if "minimum_angle" in m:
-        out["minimum_angle"], _ = minimum_angle(pos, edges,
-                                                edge_valid=edge_valid)
+        with span("engine.min_angle"):
+            out["minimum_angle"], _ = minimum_angle(pos, edges,
+                                                    edge_valid=edge_valid)
     if "edge_length_variation" in m:
-        out["edge_length_variation"] = edge_length_variation(
-            pos, edges, edge_valid=edge_valid)
+        with span("engine.edge_length"):
+            out["edge_length_variation"] = edge_length_variation(
+                pos, edges, edge_valid=edge_valid)
 
     want_ec = "edge_crossing" in m
     want_eca = "edge_crossing_angle" in m
@@ -393,25 +399,28 @@ def _evaluate(plan: ReadabilityPlan, pos, edges, use_kernels: bool,
         stats = []
         for axis_i, (axis, (max_segments, cap)) in enumerate(
                 zip(plan.axes, plan.strip_plans)):
-            segs = gridlib.build_strip_segments(
-                pos, edges, plan.n_strips, max_segments, axis=axis,
-                edge_valid=edge_valid)
-            if use_kernels:
-                buckets = gridlib.bucketize_segments(segs, plan.n_strips,
-                                                     cap)
-                cnt, dsum = fused_reversal_stats(
-                    buckets, ideal=plan.ideal, with_angle=want_eca)
-                stats.append((cnt, dsum, buckets.overflow))
-            else:
-                # occupancy-tiered sweep, as the B=1 case of the batched
-                # program (shared code keeps looped == batched)
-                segs1 = segs._replace(
-                    strip=segs.strip[None], yl=segs.yl[None],
-                    yr=segs.yr[None], theta=segs.theta[None],
-                    v=segs.v[None], u=segs.u[None], valid=segs.valid[None])
-                cnt, dsum, drop = _tiered_strip_stats(
-                    plan, axis_i, segs1, 1, with_angle=want_eca)
-                stats.append((cnt[0], dsum[0], drop[0] + segs.overflow))
+            with span("engine.strips"):
+                segs = gridlib.build_strip_segments(
+                    pos, edges, plan.n_strips, max_segments, axis=axis,
+                    edge_valid=edge_valid)
+                if use_kernels:
+                    buckets = gridlib.bucketize_segments(
+                        segs, plan.n_strips, cap)
+                    cnt, dsum = fused_reversal_stats(
+                        buckets, ideal=plan.ideal, with_angle=want_eca)
+                    stats.append((cnt, dsum, buckets.overflow))
+                else:
+                    # occupancy-tiered sweep, as the B=1 case of the
+                    # batched program (shared code keeps looped ==
+                    # batched)
+                    segs1 = segs._replace(
+                        strip=segs.strip[None], yl=segs.yl[None],
+                        yr=segs.yr[None], theta=segs.theta[None],
+                        v=segs.v[None], u=segs.u[None],
+                        valid=segs.valid[None])
+                    cnt, dsum, drop = _tiered_strip_stats(
+                        plan, axis_i, segs1, 1, with_angle=want_eca)
+                    stats.append((cnt[0], dsum[0], drop[0] + segs.overflow))
         overflow = overflow + _combine(stats, want_ec, want_eca, out)
 
     return ReadabilityScores(overflow=overflow, **out)
@@ -456,18 +465,21 @@ def evaluate_batched_body(plan: ReadabilityPlan, batch_pos, edges,
     overflow = torch.zeros(B, dtype=torch.int64, device=dev)
 
     if "node_occlusion" in m:
-        cnt, ov = count_occlusions_gridded_batched(
-            pos, plan.radius, plan.grid_origin, plan.grid_nx, plan.grid_ny,
-            plan.cell_cap, valid=vertex_valid,
-            cell_size=plan.grid_cell_size)
+        with span("engine.occlusion"):
+            cnt, ov = count_occlusions_gridded_batched(
+                pos, plan.radius, plan.grid_origin, plan.grid_nx,
+                plan.grid_ny, plan.cell_cap, valid=vertex_valid,
+                cell_size=plan.grid_cell_size)
         overflow = overflow + ov
         out["node_occlusion"] = cnt
     if "minimum_angle" in m:
-        out["minimum_angle"], _ = minimum_angle_batched(
-            pos, edges, edge_valid=edge_valid)
+        with span("engine.min_angle"):
+            out["minimum_angle"], _ = minimum_angle_batched(
+                pos, edges, edge_valid=edge_valid)
     if "edge_length_variation" in m:
-        out["edge_length_variation"] = edge_length_variation_batched(
-            pos, edges, edge_valid=edge_valid)
+        with span("engine.edge_length"):
+            out["edge_length_variation"] = edge_length_variation_batched(
+                pos, edges, edge_valid=edge_valid)
 
     want_ec = "edge_crossing" in m
     want_eca = "edge_crossing_angle" in m
@@ -475,11 +487,13 @@ def evaluate_batched_body(plan: ReadabilityPlan, batch_pos, edges,
         stats = []
         for axis_i, (axis, (max_segments, cap)) in enumerate(
                 zip(plan.axes, plan.strip_plans)):
-            segs = gridlib.build_strip_segments_batched(
-                pos, edges, plan.n_strips, max_segments, axis=axis,
-                edge_valid=edge_valid)
-            cnt, dsum, drop = _tiered_strip_stats(
-                plan, axis_i, segs, B, with_angle=want_eca)
+            # one span per axis: strip build, bucketing, tiered sweep
+            with span("engine.strips"):
+                segs = gridlib.build_strip_segments_batched(
+                    pos, edges, plan.n_strips, max_segments, axis=axis,
+                    edge_valid=edge_valid)
+                cnt, dsum, drop = _tiered_strip_stats(
+                    plan, axis_i, segs, B, with_angle=want_eca)
             stats.append((cnt, dsum, drop + segs.overflow))
         overflow = overflow + _combine(stats, want_ec, want_eca, out)
 

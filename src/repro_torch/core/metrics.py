@@ -34,6 +34,7 @@ from repro_torch.core.occlusion import count_occlusions_exact
 from repro_torch.core.scores import (ReadabilityScores, scores_from_batch,
                                      scores_from_result)
 from repro_torch.kernels import ops
+from repro_torch.spans import span
 
 # Legacy names: one typed result for every path (see repro_torch.core.scores).
 ReadabilityReport = ReadabilityScores
@@ -59,36 +60,44 @@ def evaluate_exact(pos, edges, *, config: EvalConfig = None,
     device exists; pass ``device="cpu"`` to run on the CPU.
     """
     config = config or EvalConfig()
-    dev = resolve_device(device)
-    pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
-    edges = torch.as_tensor(edges, dtype=torch.int32, device=dev)
-    metrics = config.metrics
-    out = {}
-    if "node_occlusion" in metrics:
-        out["node_occlusion"] = int(count_occlusions_exact(pos,
-                                                           config.radius))
-    if "minimum_angle" in metrics:
-        m_a, _ = minimum_angle(pos, edges)
-        out["minimum_angle"] = float(m_a)
-    if "edge_length_variation" in metrics:
-        out["edge_length_variation"] = float(edge_length_variation(pos,
-                                                                   edges))
-    if "edge_crossing" in metrics:
-        out["edge_crossing"] = int(count_crossings_exact(pos, edges))
-    if "edge_crossing_angle" in metrics:
-        if use_kernels:
-            count, dev_sum = ops.crossing_angle_op(pos, edges,
-                                                   ideal=config.ideal_angle)
-            count = int(count)
-            out["edge_crossing_angle"] = (
-                1.0 - float(dev_sum) / count if count > 0 else 1.0)
-        else:
-            e_ca, count, _ = crossing_angle_exact(pos, edges,
-                                                  ideal=config.ideal_angle)
-            out["edge_crossing_angle"] = float(e_ca)
-        out["crossing_count_for_angle"] = int(count)
-    return ReadabilityScores(overflow=0, n_vertices=int(pos.shape[0]),
-                             n_edges=int(edges.shape[0]), **out)
+    with span("exact"):
+        dev = resolve_device(device)
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+        edges = torch.as_tensor(edges, dtype=torch.int32, device=dev)
+        metrics = config.metrics
+        out = {}
+        # each span ends at its int(...) / float(...), which waits for
+        # the device: launch and sweep are inside it
+        if "node_occlusion" in metrics:
+            with span("exact.occlusion"):
+                out["node_occlusion"] = int(
+                    count_occlusions_exact(pos, config.radius))
+        if "minimum_angle" in metrics:
+            with span("exact.min_angle"):
+                m_a, _ = minimum_angle(pos, edges)
+                out["minimum_angle"] = float(m_a)
+        if "edge_length_variation" in metrics:
+            with span("exact.edge_length"):
+                out["edge_length_variation"] = float(
+                    edge_length_variation(pos, edges))
+        if "edge_crossing" in metrics:
+            with span("exact.crossing"):
+                out["edge_crossing"] = int(count_crossings_exact(pos, edges))
+        if "edge_crossing_angle" in metrics:
+            with span("exact.crossing_angle"):
+                if use_kernels:
+                    count, dev_sum = ops.crossing_angle_op(
+                        pos, edges, ideal=config.ideal_angle)
+                    count = int(count)
+                    out["edge_crossing_angle"] = (
+                        1.0 - float(dev_sum) / count if count > 0 else 1.0)
+                else:
+                    e_ca, count, _ = crossing_angle_exact(
+                        pos, edges, ideal=config.ideal_angle)
+                    out["edge_crossing_angle"] = float(e_ca)
+                out["crossing_count_for_angle"] = int(count)
+        return ReadabilityScores(overflow=0, n_vertices=int(pos.shape[0]),
+                                 n_edges=int(edges.shape[0]), **out)
 
 
 def evaluate_layout(pos, edges, *, radius: float = 0.5,

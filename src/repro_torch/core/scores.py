@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.validate import (CancelledError, DeadlineExceededError,
                                        OverloadedError)
+from repro_torch.spans import span
 
 METRIC_FIELDS = ("node_occlusion", "minimum_angle", "edge_length_variation",
                  "edge_crossing", "edge_crossing_angle",
@@ -189,7 +190,8 @@ def _cast(v, to):
 def scores_from_result(res, n_vertices=None, n_edges=None
                        ) -> ReadabilityScores:
     """One (unbatched) engine result -> host scores (Python scalars)."""
-    got = _fetch(res)
+    with span("scores.fetch"):
+        got = _fetch(res)
     return ReadabilityScores(
         node_occlusion=_cast(got["node_occlusion"], int),
         minimum_angle=_cast(got["minimum_angle"], float),
@@ -212,7 +214,8 @@ def error_scores(error, n_vertices=None, n_edges=None) -> ReadabilityScores:
 def host_batch(res, n_vertices=None, n_edges=None,
                flags=None) -> ReadabilityScores:
     """A batched engine result with numpy ``(B,)`` fields (one copy)."""
-    got = _fetch(res)
+    with span("scores.fetch"):
+        got = _fetch(res)
     return ReadabilityScores(**got, n_vertices=n_vertices, n_edges=n_edges,
                              flags=flags)
 

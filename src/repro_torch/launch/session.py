@@ -92,6 +92,7 @@ from repro_torch.core.validate import (BackendUnavailableError,
                                        ReadabilityError, validate_request)
 from repro_torch.launch import admission, faults
 from repro_torch.launch.admission import CircuitBreaker
+from repro_torch.spans import span
 
 # Park coordinate for padded tail vertices, far outside any real layout
 # extent; correctness rests on the n_valid masks, not on this value.
@@ -319,24 +320,27 @@ class EvalSession:
     def _prepare(self, index, pos, edges):
         """Validate, pad, and key one request (raises
         :class:`InvalidInputError`; the caller quarantines it)."""
-        pos, edges, flags = validate_request(
-            pos, edges, mode=self.config.validation, index=index)
-        if flags:
-            self._stats["sanitized"] += 1
-        pos = np.asarray(pos, np.float32)
-        edges = np.asarray(edges, np.int32)
-        n_v, n_e = pos.shape[0], edges.shape[0]
-        vb = pow2_bucket(n_v, self.vertex_floor)
-        eb = pow2_bucket(n_e, self.edge_floor)
-        pos_p = np.full((vb, 2), PARK, np.float32)
-        pos_p[:n_v] = pos
-        edges_p = np.zeros((eb, 2), np.int32)
-        edges_p[:n_e] = edges
-        key = (topology_hash(edges, n_v), vb, eb, self.config)
-        return key, dict(index=index, pos=pos, edges=edges, pos_p=pos_p,
-                         edges_p=edges_p, n_v=n_v, n_e=n_e, flags=flags,
-                         cost=vb + eb, deadline=None, cancel=None,
-                         arrival=None)
+        with span("session.prepare"):
+            with span("session.prepare.validate"):
+                pos, edges, flags = validate_request(
+                    pos, edges, mode=self.config.validation, index=index)
+            if flags:
+                self._stats["sanitized"] += 1
+            pos = np.asarray(pos, np.float32)
+            edges = np.asarray(edges, np.int32)
+            n_v, n_e = pos.shape[0], edges.shape[0]
+            vb = pow2_bucket(n_v, self.vertex_floor)
+            eb = pow2_bucket(n_e, self.edge_floor)
+            pos_p = np.full((vb, 2), PARK, np.float32)
+            pos_p[:n_v] = pos
+            edges_p = np.zeros((eb, 2), np.int32)
+            edges_p[:n_e] = edges
+            with span("session.prepare.hash"):
+                key = (topology_hash(edges, n_v), vb, eb, self.config)
+            return key, dict(index=index, pos=pos, edges=edges, pos_p=pos_p,
+                             edges_p=edges_p, n_v=n_v, n_e=n_e, flags=flags,
+                             cost=vb + eb, deadline=None, cancel=None,
+                             arrival=None)
 
     def _plan_for(self, key, member):
         plan = self.plans.get(key)
@@ -366,81 +370,83 @@ class EvalSession:
         ``stats`` / ``breaker`` default to the session's own; the watchdog
         passes buffering stand-ins so that an abandoned dispatch's writes
         can be dropped (see :meth:`_guarded_dispatch`)."""
-        if stats is None:
-            stats = self._stats
-        if breaker is None:
-            breaker = self.breaker
-        faults.check_dispatch()
-        stats["dispatches"] += 1
-        n_v, n_e = chunk[0]["n_v"], chunk[0]["n_e"]
-        use_kernels = self.config.use_kernels
-        if (self.config.backend == "graph_sharded" and self.mesh is not None
-                and breaker.allow()):
-            # top rung: each layout spatially partitioned over the mesh
-            # (one driver call per member: the graph axis, not the batch
-            # axis, is what is sharded); any failure drops to the fused
-            # rungs below
-            from repro_torch.distributed.graph_sharded import \
-                evaluate_graph_sharded
-            try:
-                if breaker.probing:
-                    faults.check_probe()
-                faults.check_sharded()
-                results = [evaluate_graph_sharded(
-                    self.mesh, plan, c["pos_p"], c["edges_p"],
-                    n_valid_vertices=n_v, n_valid_edges=n_e)
-                    for c in chunk]
-                reports = [scores_from_result(r, n_v, n_e) for r in results]
-                breaker.record_success()
-                stats["graph_sharded_dispatches"] += len(chunk)
-                if len(chunk) > 1:
-                    stats["coalesced"] += len(chunk)
-                return faults.storm_overflow(reports)
-            except Exception:
-                breaker.record_failure()
-                stats["degraded_dispatches"] += 1
-        if len(chunk) == 1:
-            res = engine.evaluate_planned(
-                plan, chunk[0]["pos_p"], chunk[0]["edges_p"], n_v, n_e,
-                use_kernels=use_kernels, device=self.device)
-            reports = [scores_from_result(res, n_v, n_e)]
-        else:
-            stats["coalesced"] += len(chunk)
-            batch = np.stack([c["pos_p"] for c in chunk])
-            reports = None
-            if (self.mesh is not None and self.mesh.size > 1
-                    and not use_kernels and breaker.allow()):
-                # scale-out: the coalesced batch axis over the mesh (the
-                # kernels route evaluates members one by one and stays
-                # single-host)
-                from repro_torch.distributed.batched import \
-                    evaluate_layouts_sharded
+        with span("session.dispatch"):
+            if stats is None:
+                stats = self._stats
+            if breaker is None:
+                breaker = self.breaker
+            faults.check_dispatch()
+            stats["dispatches"] += 1
+            n_v, n_e = chunk[0]["n_v"], chunk[0]["n_e"]
+            use_kernels = self.config.use_kernels
+            if (self.config.backend == "graph_sharded"
+                    and self.mesh is not None and breaker.allow()):
+                # top rung: each layout spatially partitioned over the mesh
+                # (one driver call per member: the graph axis, not the batch
+                # axis, is what is sharded); any failure drops to the fused
+                # rungs below
+                from repro_torch.distributed.graph_sharded import \
+                    evaluate_graph_sharded
                 try:
                     if breaker.probing:
                         faults.check_probe()
                     faults.check_sharded()
-                    res = evaluate_layouts_sharded(
-                        self.mesh, plan, batch, chunk[0]["edges_p"],
+                    results = [evaluate_graph_sharded(
+                        self.mesh, plan, c["pos_p"], c["edges_p"],
                         n_valid_vertices=n_v, n_valid_edges=n_e)
-                    reports = scores_from_batch(res, n_v, n_e)
+                        for c in chunk]
+                    reports = [scores_from_result(r, n_v, n_e)
+                               for r in results]
                     breaker.record_success()
-                    stats["sharded_dispatches"] += 1
+                    stats["graph_sharded_dispatches"] += len(chunk)
+                    if len(chunk) > 1:
+                        stats["coalesced"] += len(chunk)
+                    return faults.storm_overflow(reports)
                 except Exception:
-                    # one rung down: fused single-host, the same batched
-                    # body; the breaker re-probes on its own schedule
                     breaker.record_failure()
                     stats["degraded_dispatches"] += 1
-                    reports = None
-            if reports is None:
-                res = engine.evaluate_layouts(
-                    plan, batch, chunk[0]["edges_p"], n_v, n_e,
+            if len(chunk) == 1:
+                res = engine.evaluate_planned(
+                    plan, chunk[0]["pos_p"], chunk[0]["edges_p"], n_v, n_e,
                     use_kernels=use_kernels, device=self.device)
-                reports = scores_from_batch(res, n_v, n_e)
-        if self.mesh is not None:
-            # the fused rung served while a mesh exists: feed the open
-            # breaker's half-open countdown (a no-op otherwise)
-            breaker.record_fallback_success()
-        return faults.storm_overflow(reports)
+                reports = [scores_from_result(res, n_v, n_e)]
+            else:
+                stats["coalesced"] += len(chunk)
+                batch = np.stack([c["pos_p"] for c in chunk])
+                reports = None
+                if (self.mesh is not None and self.mesh.size > 1
+                        and not use_kernels and breaker.allow()):
+                    # scale-out: the coalesced batch axis over the mesh (the
+                    # kernels route evaluates members one by one and stays
+                    # single-host)
+                    from repro_torch.distributed.batched import \
+                        evaluate_layouts_sharded
+                    try:
+                        if breaker.probing:
+                            faults.check_probe()
+                        faults.check_sharded()
+                        res = evaluate_layouts_sharded(
+                            self.mesh, plan, batch, chunk[0]["edges_p"],
+                            n_valid_vertices=n_v, n_valid_edges=n_e)
+                        reports = scores_from_batch(res, n_v, n_e)
+                        breaker.record_success()
+                        stats["sharded_dispatches"] += 1
+                    except Exception:
+                        # one rung down: fused single-host, the same batched
+                        # body; the breaker re-probes on its own schedule
+                        breaker.record_failure()
+                        stats["degraded_dispatches"] += 1
+                        reports = None
+                if reports is None:
+                    res = engine.evaluate_layouts(
+                        plan, batch, chunk[0]["edges_p"], n_v, n_e,
+                        use_kernels=use_kernels, device=self.device)
+                    reports = scores_from_batch(res, n_v, n_e)
+            if self.mesh is not None:
+                # the fused rung served while a mesh exists: feed the open
+                # breaker's half-open countdown (a no-op otherwise)
+                breaker.record_fallback_success()
+            return faults.storm_overflow(reports)
 
     # -- the hung-dispatch watchdog ------------------------------------------
 
@@ -862,7 +868,7 @@ class EvalSession:
                 raise InvalidInputError(
                     "new_pos contains non-finite coordinates",
                     reason="bad_update")
-        with lay["lock"]:
+        with span("session.update"), lay["lock"]:
             self._stats["updates"] += 1
             # duplicate indices: the last write wins, as in a drag
             uniq, ridx = np.unique(moved[::-1], return_index=True)
@@ -900,9 +906,10 @@ class EvalSession:
         new_xy_p[:len(moved)] = new_xy
         aff = incremental.affected_edges(lay["edges"], moved, n_v)
         aff_p = incremental.pad_ids(aff, eb, floor=16)
-        probe = incremental.delta_probe(
-            plan_r, state, lay["edges_d"], n_e, moved_p, new_xy_p, aff_p,
-            device=self.device)
+        with span("session.update.probe"):
+            probe = incremental.delta_probe(
+                plan_r, state, lay["edges_d"], n_e, moved_p, new_xy_p,
+                aff_p, device=self.device)
 
         dirty_strips, k = [], len(moved)
         for axis_i, (lo2, hi2, sfn, sln, nsn) in enumerate(probe["axes"]):
@@ -948,9 +955,11 @@ class EvalSession:
             [moved, lay["edges"][aff].reshape(-1).astype(np.int64)]))
         dv_p = incremental.pad_ids(dirty_ma, vb, floor=16)
 
-        res, new_state = incremental.evaluate_delta(
-            plan_r, state, lay["edges_d"], n_e, moved_p, new_xy_p, aff_p,
-            dc_p, own_p, tuple(dirty_strips), dv_p, device=self.device)
+        with span("session.update.delta"):
+            res, new_state = incremental.evaluate_delta(
+                plan_r, state, lay["edges_d"], n_e, moved_p, new_xy_p,
+                aff_p, dc_p, own_p, tuple(dirty_strips), dv_p,
+                device=self.device)
         scores = scores_from_result(res, n_v, n_e)
         if scores.overflow > 0:
             # bucket overflow or a dirty-set miss in the rebuild:

@@ -48,6 +48,7 @@ from repro_torch.core.keys import EvalConfig
 from repro_torch.core.scores import ReadabilityScores, host_batch
 from repro_torch.core.validate import InvalidInputError, validate_batch
 from repro_torch.optim import adamw
+from repro_torch.spans import span
 
 # The five normalized metric fields that enter the search objective
 # (crossing_count_for_angle is E_ca's paired count, not a readability).
@@ -183,29 +184,30 @@ class GradientSearch:
     def _init_batch(self, pos0, edges):
         """Restart batch from a seed layout (or an explicit batch),
         validated through the taxonomy."""
-        pos0 = np.asarray(pos0, np.float32)
-        if pos0.ndim == 2:
-            rng = np.random.default_rng(self.seed)
-            extent = self._extent(pos0)
-            batch = np.repeat(pos0[None], self.restarts, axis=0)
-            if self.restarts > 1:
-                noise = rng.standard_normal(
-                    (self.restarts - 1,) + pos0.shape).astype(np.float32)
-                batch[1:] += self.jitter * extent * noise
-        elif pos0.ndim == 3:
-            batch = pos0.copy()
-            self.restarts = batch.shape[0]
-        else:
-            raise InvalidInputError(
-                f"search wants a (V, 2) layout or a (B, V, 2) restart "
-                f"batch; got shape {pos0.shape}")
-        batch, edges, flags = validate_batch(
-            batch, np.asarray(edges, np.int32),
-            mode=self.config.validation)
-        if batch.shape[1] == 0:
-            raise InvalidInputError("cannot search over a layout with "
-                                    "zero vertices")
-        return batch, edges, flags
+        with span("search.init"):
+            pos0 = np.asarray(pos0, np.float32)
+            if pos0.ndim == 2:
+                rng = np.random.default_rng(self.seed)
+                extent = self._extent(pos0)
+                batch = np.repeat(pos0[None], self.restarts, axis=0)
+                if self.restarts > 1:
+                    noise = rng.standard_normal(
+                        (self.restarts - 1,) + pos0.shape).astype(np.float32)
+                    batch[1:] += self.jitter * extent * noise
+            elif pos0.ndim == 3:
+                batch = pos0.copy()
+                self.restarts = batch.shape[0]
+            else:
+                raise InvalidInputError(
+                    f"search wants a (V, 2) layout or a (B, V, 2) restart "
+                    f"batch; got shape {pos0.shape}")
+            batch, edges, flags = validate_batch(
+                batch, np.asarray(edges, np.int32),
+                mode=self.config.validation)
+            if batch.shape[1] == 0:
+                raise InvalidInputError("cannot search over a layout with "
+                                        "zero vertices")
+            return batch, edges, flags
 
     @staticmethod
     def _extent(pos) -> float:
@@ -233,26 +235,30 @@ class GradientSearch:
         (their losses and gradients are row-local) and the ranks gather
         the rest.  Returns ``(new_pos, new_state, (B,) losses,
         grad_norm)``."""
-        rows = pos
-        if mesh is not None:
-            per = pos.shape[0] // mesh.size
-            rows = pos[mesh.rank * per:(mesh.rank + 1) * per]
-        leaf = rows.detach().requires_grad_(True)
-        losses = soft.soft_loss(
-            plan, leaf, edges, tau, weights=self.weights,
-            n_valid_vertices=valid[0] if valid else None,
-            n_valid_edges=valid[1] if valid else None)
-        grad, = torch.autograd.grad(losses.sum(), leaf)
-        losses = losses.detach()
-        if mesh is not None:
-            from repro_torch.distributed.collectives import all_gather
-            grad = all_gather(mesh, grad)
-            losses = all_gather(mesh, losses)
-        with torch.no_grad():
-            new, state, om = adamw.apply_updates(
-                {"pos": pos.detach()}, {"pos": grad}, state, opt_cfg,
-                adamw.cosine_schedule(opt_cfg))
-        return new["pos"], state, losses, om["grad_norm"]
+        with span("search.step"):
+            rows = pos
+            if mesh is not None:
+                per = pos.shape[0] // mesh.size
+                rows = pos[mesh.rank * per:(mesh.rank + 1) * per]
+            leaf = rows.detach().requires_grad_(True)
+            with span("search.step.forward"):
+                losses = soft.soft_loss(
+                    plan, leaf, edges, tau, weights=self.weights,
+                    n_valid_vertices=valid[0] if valid else None,
+                    n_valid_edges=valid[1] if valid else None)
+            with span("search.step.backward"):
+                grad, = torch.autograd.grad(losses.sum(), leaf)
+                losses = losses.detach()
+                if mesh is not None:
+                    from repro_torch.distributed.collectives import \
+                        all_gather
+                    grad = all_gather(mesh, grad)
+                    losses = all_gather(mesh, losses)
+            with span("search.step.adamw"), torch.no_grad():
+                new, state, om = adamw.apply_updates(
+                    {"pos": pos.detach()}, {"pos": grad}, state, opt_cfg,
+                    adamw.cosine_schedule(opt_cfg))
+            return new["pos"], state, losses, om["grad_norm"]
 
     def _exact_rescore(self, plan, pos_dev, edges_dev, valid, n_v, n_e,
                        mesh=None):
@@ -276,90 +282,101 @@ class GradientSearch:
         ``restarts`` parallel starts, or an explicit ``(B, V, 2)``
         restart batch).  Returns a :class:`SearchResult` of exact
         scores; ``result.best_positions`` is the winning layout."""
-        batch, edges_nat, flags = self._init_batch(pos0, edges)
-        n_v, n_e = batch.shape[1], edges_nat.shape[0]
+        with span("search"):
+            batch, edges_nat, flags = self._init_batch(pos0, edges)
+            n_v, n_e = batch.shape[1], edges_nat.shape[0]
 
-        # E=0: the engine's degenerate contract -- one masked edge row
-        valid = ()
-        edges_eval = edges_nat
-        if n_e == 0:
-            edges_eval = np.zeros((1, 2), np.int32)
-            valid = (n_v, 0)
+            # E=0: the engine's degenerate contract -- one masked edge row
+            valid = ()
+            edges_eval = edges_nat
+            if n_e == 0:
+                edges_eval = np.zeros((1, 2), np.int32)
+                valid = (n_v, 0)
 
-        mesh = None
-        if self.config.backend == "distributed":
-            mesh = self._mesh()
-            pad = (-batch.shape[0]) % mesh.size
-            if pad:
-                # pad the restarts to the mesh size with extra jittered
-                # starts: diversity instead of dead rows
-                rng = np.random.default_rng(self.seed + 1)
-                noise = rng.standard_normal(
-                    (pad,) + batch.shape[1:]).astype(np.float32)
-                batch = np.concatenate(
-                    [batch, batch[:1] + self.jitter * self._extent(batch)
-                     * noise])
-                self.restarts = batch.shape[0]
+            mesh = None
+            if self.config.backend == "distributed":
+                mesh = self._mesh()
+                pad = (-batch.shape[0]) % mesh.size
+                if pad:
+                    # pad the restarts to the mesh size with extra jittered
+                    # starts: diversity instead of dead rows
+                    rng = np.random.default_rng(self.seed + 1)
+                    noise = rng.standard_normal(
+                        (pad,) + batch.shape[1:]).astype(np.float32)
+                    batch = np.concatenate(
+                        [batch, batch[:1] + self.jitter * self._extent(batch)
+                         * noise])
+                    self.restarts = batch.shape[0]
 
-        plan = engine.plan_readability(batch, edges_eval,
-                                       **self.config.plan_kwargs())
-        opt_cfg = self._resolve_opt(self._extent(batch))
-        pos, edges_dev = engine.device_inputs(batch, edges_eval,
-                                              self.device)
-        state = adamw.init_state({"pos": pos})
-        counters = {"rescores": 0, "replans": 0}
+            with span("search.plan"):
+                plan = engine.plan_readability(batch, edges_eval,
+                                               **self.config.plan_kwargs())
+            opt_cfg = self._resolve_opt(self._extent(batch))
+            pos, edges_dev = engine.device_inputs(batch, edges_eval,
+                                                  self.device)
+            state = adamw.init_state({"pos": pos})
+            counters = {"rescores": 0, "replans": 0}
 
-        def rescore(pos_dev, cur_plan):
-            counters["rescores"] += 1
-            res = self._exact_rescore(cur_plan, pos_dev, edges_dev, valid,
-                                      n_v, n_e, mesh)
-            if int(np.max(res.overflow)) > 0:
-                # the layouts outgrew the plan's capacities: grow the plan
-                # from the offending batch and re-score once
-                counters["replans"] += 1
-                cur_plan = engine.replan_on_overflow(
-                    cur_plan, pos_dev.cpu().numpy(), edges_eval, res)
-                res = self._exact_rescore(cur_plan, pos_dev, edges_dev,
-                                          valid, n_v, n_e, mesh)
-            return res, cur_plan
+            def rescore(pos_dev, cur_plan):
+                with span("search.rescore"):
+                    counters["rescores"] += 1
+                    res = self._exact_rescore(cur_plan, pos_dev, edges_dev,
+                                              valid, n_v, n_e, mesh)
+                    if int(np.max(res.overflow)) > 0:
+                        # the layouts outgrew the plan's capacities: grow
+                        # the plan from the offending batch and re-score
+                        # once
+                        with span("search.replan"):
+                            counters["replans"] += 1
+                            cur_plan = engine.replan_on_overflow(
+                                cur_plan, pos_dev.cpu().numpy(), edges_eval,
+                                res)
+                            res = self._exact_rescore(
+                                cur_plan, pos_dev, edges_dev, valid, n_v,
+                                n_e, mesh)
+                    return res, cur_plan
 
-        init_res, plan = rescore(pos, plan)
-        init_obj = batch_objectives(init_res)
-        init_scores = tuple(init_res.unbatch())
-        best_obj = init_obj.copy()
-        best_pos = np.asarray(batch, np.float32).copy()
-        best_scores = list(init_scores)
-        trajectory = [dict(step=0, temperature=self._temperature_at(0),
-                           mean_soft_loss=None,
-                           mean_objective=float(init_obj.mean()),
-                           best_objective=float(best_obj.max()))]
+            init_res, plan = rescore(pos, plan)
+            with span("search.record"):
+                init_obj = batch_objectives(init_res)
+                init_scores = tuple(init_res.unbatch())
+                best_obj = init_obj.copy()
+                best_pos = np.asarray(batch, np.float32).copy()
+                best_scores = list(init_scores)
+                trajectory = [dict(
+                    step=0, temperature=self._temperature_at(0),
+                    mean_soft_loss=None,
+                    mean_objective=float(init_obj.mean()),
+                    best_objective=float(best_obj.max()))]
 
-        for k in range(self.steps):
-            t_k = np.float32(self._temperature_at(k))
-            tau = torch.full((), t_k, dtype=torch.float32,
-                             device=self.device)
-            pos, state, losses, _ = self.step(plan, opt_cfg, pos, state,
-                                              edges_dev, tau, valid, mesh)
-            if k == self.steps - 1 or (k + 1) % self.rescore_every == 0:
-                res, plan = rescore(pos, plan)
-                obj = batch_objectives(res)
-                scores_list = res.unbatch()
-                pos_np = pos.cpu().numpy()
-                for i in np.flatnonzero(obj > best_obj):
-                    best_obj[i] = obj[i]
-                    best_pos[i] = pos_np[i]
-                    best_scores[i] = scores_list[i]
-                trajectory.append(dict(
-                    step=k + 1, temperature=float(t_k),
-                    mean_soft_loss=float(np.mean(losses.cpu().numpy())),
-                    mean_objective=float(obj.mean()),
-                    best_objective=float(best_obj.max())))
+            for k in range(self.steps):
+                t_k = np.float32(self._temperature_at(k))
+                tau = torch.full((), t_k, dtype=torch.float32,
+                                 device=self.device)
+                pos, state, losses, _ = self.step(plan, opt_cfg, pos, state,
+                                                  edges_dev, tau, valid, mesh)
+                if k == self.steps - 1 or (k + 1) % self.rescore_every == 0:
+                    res, plan = rescore(pos, plan)
+                    with span("search.record"):
+                        obj = batch_objectives(res)
+                        scores_list = res.unbatch()
+                        pos_np = pos.cpu().numpy()
+                        for i in np.flatnonzero(obj > best_obj):
+                            best_obj[i] = obj[i]
+                            best_pos[i] = pos_np[i]
+                            best_scores[i] = scores_list[i]
+                        trajectory.append(dict(
+                            step=k + 1, temperature=float(t_k),
+                            mean_soft_loss=float(
+                                np.mean(losses.cpu().numpy())),
+                            mean_objective=float(obj.mean()),
+                            best_objective=float(best_obj.max())))
 
-        if flags:
-            counters["validation_flags"] = flags
-        return SearchResult(
-            positions=best_pos, scores=tuple(best_scores),
-            objectives=best_obj, init_positions=batch,
-            init_scores=init_scores, init_objectives=init_obj,
-            trajectory=tuple(trajectory), steps=self.steps,
-            restarts=self.restarts, counters=counters)
+            if flags:
+                counters["validation_flags"] = flags
+            return SearchResult(
+                positions=best_pos, scores=tuple(best_scores),
+                objectives=best_obj, init_positions=batch,
+                init_scores=init_scores, init_objectives=init_obj,
+                trajectory=tuple(trajectory), steps=self.steps,
+                restarts=self.restarts, counters=counters)

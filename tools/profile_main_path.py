@@ -14,14 +14,16 @@ step of the layout-generation example's search (4 restarts of an FR
 layout at |V| = 400) and (g2) one step of ``chip_smoke.py``'s search at
 |V| = 100,000 (8 restarts; the soft loss's forward and backward and the
 AdamW update) -- prints the wall time,
-the device time ``torch.profiler`` records, the device's idle share of
-the wall time, and the kernels that take the most device time.  For (e1)
-it also splits one call's host clock into the session's request
-preparation (validation, topology hash, pow2 padding), the batch stack
-and the engine call with its host scores; for (f) it splits a frame's
-host clock into the probe (with its fetch), the host's dirty-set
-planning, the delta's enqueue and the scores' fetch (which waits for the
-device), as medians over 20 frames.
+the device-busy time of a call (the union of the device intervals of a
+``torch.profiler`` trace of the device's activity, as
+``bench/trace_reader.py`` reads it), the device's idle share of the
+traced window, and the ops that take the most device time.  For (e1)
+and (f) it also prints the program's spans (:mod:`repro_torch.spans`)
+of the calls it runs: the time in each, summed by name within a call,
+as medians over the calls -- for (e1) the session's request preparation
+(validation, topology hash), its dispatch and the engine's steps within
+it, for (f) a frame's probe, the delta's enqueue and the scores' fetch
+(which waits for the device), over 20 frames.
 
 ``--train`` profiles instead one step of ``chip_smoke.py``'s (k2):
 qwen3-4b at full width (``FULL_TRAIN_LAYERS`` layers), 4 micro-batches
@@ -66,8 +68,14 @@ RUNS = 3
 
 
 def profile(label, fn, card, runs=RUNS, top_n=8, width=90):
+    """Time ``fn`` and trace ``runs`` calls of it; returns ``[[op name,
+    device seconds per call], ...]``, most first."""
+    import tempfile
+
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from bench.trace_reader import read_chrome_trace
 
     fn()
     torch.cuda.synchronize()
@@ -77,28 +85,51 @@ def profile(label, fn, card, runs=RUNS, top_n=8, width=90):
         fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    # the device's activity and the runtime calls, no host operators
+    # (which would stretch the window); a synchronisation on each side
+    # marks the window in the trace
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / runs
-    # device-side events only (kernels and copies): CPU ops carry the
-    # device time of what they launch too, which would count it twice
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")
-              and e.self_device_time_total > 0]
-    device_us = sum(e.self_device_time_total for e in events) / runs
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/trace.json"
+        prof.export_chrome_trace(path)
+        trace = read_chrome_trace(path)
+    busy = trace.busy_s()
     print(f"{label}: wall {statistics.median(walls):.3f} ms unprofiled "
-          f"(median of {runs}), {wall:.3f} ms profiled; device "
-          f"{device_us / 1e3:.3f} ms; idle share "
-          f"{1 - device_us / 1e3 / wall:.3f} on {card}")
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:top_n]
-    for e in top:
-        print(f"    {e.self_device_time_total / runs / 1e3:9.4f} ms "
-              f"x{e.count // runs:<5d} {e.key[:width]}")
-    return events
+          f"(median of {runs}), {trace.window_s * 1e3 / runs:.3f} ms "
+          f"traced; device {busy * 1e3 / runs:.3f} ms; idle share "
+          f"{1 - busy / trace.window_s:.3f} on {card}")
+    ops = [[name, sec / runs] for name, sec in
+           trace.top_ops(len(trace.device))]
+    for name, sec in ops[:top_n]:
+        print(f"    {sec * 1e3:9.4f} ms {name[:width]}")
+    return ops
+
+
+def span_split(label, fn, calls=RUNS):
+    """Print the program's spans of ``calls`` calls of ``fn``: the time
+    in each span, summed by name within a call, as medians over the
+    calls (host clock; a span that waits for the device includes it)."""
+    from repro_torch import spans
+    per_call = []
+    spans.enable()
+    try:
+        for _ in range(calls):
+            fn()
+            got = {}
+            for sp in spans.drain().spans:
+                got[sp.name] = got.get(sp.name, 0.0) + (
+                    sp.end_ns - sp.start_ns) * 1e-6
+            per_call.append(got)
+    finally:
+        spans.disable()
+    names = sorted({n for got in per_call for n in got})
+    print(f"    {label} spans (ms, median of {calls} calls): " + ", ".join(
+        f"{n} {statistics.median(got.get(n, 0.0) for got in per_call):.3f}"
+        for n in names))
 
 
 # kinds of kernel, by a word of their name (first match wins).  A cast to
@@ -237,14 +268,14 @@ def equivariant_profile(card):
         torch.cuda.empty_cache()
 
 
-def by_kind(events):
-    """Print the device time of ``events`` by kind of kernel."""
+def by_kind(ops):
+    """Print the device time of ``ops`` (``profile``'s) by kind of
+    kernel."""
     kinds = {}
-    for e in events:
-        name = e.key.lower()
+    for name, sec in ops:
         kind = next((k for k, words in KINDS
-                     if any(w in name for w in words)), "other")
-        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+                     if any(w in name.lower() for w in words)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + sec * 1e3
     for kind, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
         print(f"    {kind}: {ms:.3f} ms")
 
@@ -303,7 +334,7 @@ def main() -> int:
         xserver = ReadabilityServer(method="exact")
     profile(f"(e1) server fused, {BATCH} requests",
             lambda: server.evaluate_batch(reqs), card)
-    host_split(server.session, reqs)
+    span_split("(e1)", lambda: server.evaluate_batch(reqs))
     profile(f"(e2) server kernels, {BATCH} requests",
             lambda: kserver.evaluate_batch(reqs), card)
     profile("(e3) server method='exact'",
@@ -363,81 +394,11 @@ def drag_profile(cfg, pos, edges, card, split_frames=20):
     moves = iter(targets)
     profile("(f) update, one dragged frame",
             lambda: sess.update("drag", [v], [next(moves)]), card)
-    drag_split(sess, v, moves)
+    span_split("(f)", lambda: sess.update("drag", [v], [next(moves)]),
+               calls=split_frames)
     stats = sess.stats
     print(f"    (f) updates {stats['updates']}, delta_hits "
           f"{stats['delta_hits']}, delta_fallbacks {stats['delta_fallbacks']}")
-
-
-def drag_split(sess, v, moves):
-    """Medians over the remaining ``moves`` of one frame's host clock:
-    the probe (its fetch included), the host's dirty-set planning (the
-    rest of the frame), the delta's enqueue and the scores' fetch."""
-    from repro_torch.core import incremental
-    from repro_torch.launch import session as session_mod
-    spent = {"probe": [], "delta": [], "fetch": []}
-    originals = {}
-
-    def timed(owner, name, key):
-        fn = getattr(owner, name)
-        originals[(owner, name)] = fn
-
-        def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            spent[key].append((time.perf_counter() - t0) * 1e3)
-            return out
-        setattr(owner, name, wrapper)
-
-    timed(incremental, "delta_probe", "probe")
-    timed(incremental, "evaluate_delta", "delta")
-    timed(session_mod, "scores_from_result", "fetch")
-    frames = []
-    try:
-        for tgt in moves:
-            t0 = time.perf_counter()
-            sess.update("drag", [v], [tgt])
-            frames.append((time.perf_counter() - t0) * 1e3)
-    finally:
-        for (owner, name), fn in originals.items():
-            setattr(owner, name, fn)
-    planning = [f - p - d - g for f, p, d, g in zip(
-        frames, spent["probe"], spent["delta"], spent["fetch"])]
-    med = statistics.median
-    print(f"    (f) host split of a frame (median of {len(frames)}): frame "
-          f"{med(frames):.3f} ms = probe {med(spent['probe']):.3f} ms + "
-          f"planning {med(planning):.3f} ms + delta enqueue "
-          f"{med(spent['delta']):.3f} ms + fetch "
-          f"{med(spent['fetch']):.3f} ms")
-
-
-def host_split(session, reqs):
-    """One warm ``evaluate_batch`` of ``reqs`` split on the host clock
-    into the session's steps (the device synchronised after each)."""
-    import numpy as np
-    import torch
-    from repro_torch.core import engine
-    from repro_torch.core.scores import scores_from_batch
-
-    t0 = time.perf_counter()
-    members = [session._prepare(i, p, e)[1] for i, (p, e) in
-               enumerate(reqs)]
-    t1 = time.perf_counter()
-    stacked = np.stack([m["pos_p"] for m in members])
-    t2 = time.perf_counter()
-    plan = session.plans.get(session._prepare(0, *reqs[0])[0])
-    t3 = time.perf_counter()
-    res = engine.evaluate_layouts(plan, stacked, members[0]["edges_p"],
-                                  members[0]["n_v"], members[0]["n_e"],
-                                  device=session.device)
-    torch.cuda.synchronize()
-    t4 = time.perf_counter()
-    scores_from_batch(res, members[0]["n_v"], members[0]["n_e"])
-    t5 = time.perf_counter()
-    print(f"    (e1) host split: prepare {len(reqs)} requests "
-          f"{(t1 - t0) * 1e3:.3f} ms, stack {(t2 - t1) * 1e3:.3f} ms, "
-          f"engine {(t4 - t3) * 1e3:.3f} ms, host scores "
-          f"{(t5 - t4) * 1e3:.3f} ms")
 
 
 if __name__ == "__main__":
