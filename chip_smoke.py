@@ -37,8 +37,10 @@ Phases (any failed check raises):
    ``use_kernels=False`` and ``True``, on ego-Facebook at its published
    size (4,039 vertices, 88,234 edges, random layout), against the JAX
    reference's op-by-op constants; each call must launch the
-   segment-crossing, crossing-angle and occlusion-pair kernels once
-   each, on the shapes checked and timed here.
+   crossing-angle and occlusion-pair kernels once each (the
+   crossing-angle kernel's count is E_c), on the shapes checked and
+   timed here; (d2) the same call with E_c alone must launch the
+   segment-crossing kernel once and nothing else.
    (e) the serving front and the standalone enhanced algorithms:
    (e1) ``ReadabilityServer(EvalConfig(radius=0.5, n_strips=512))``
    serves (b)'s 8 layouts as 8 requests in one session dispatch of B=8 on
@@ -4821,8 +4823,9 @@ def main() -> int:
     e_pad = xargs[0].shape[0]
     xocc_x, xocc_y, xocc_ok = occlusion_args(epos, epos.shape[0], dev)
     x_pad = xocc_x.shape[0]
-    print(f"shape (d), (e3) segment_crossing: ({e_pad},); crossing_angle_sum: "
-          f"({e_pad},); occlusion_pairs: ({x_pad},)", flush=True)
+    print(f"shape (d2) segment_crossing: ({e_pad},); (d), (e3) "
+          f"crossing_angle_sum: ({e_pad},); occlusion_pairs: ({x_pad},)",
+          flush=True)
 
     # -- 2. kernel vs plain ------------------------------------------------
     # each kernel's checked shapes, with the arguments first checked there
@@ -4972,9 +4975,11 @@ def main() -> int:
         total_launches.update(dict(zip(names, sub_launches[key])))
         return out
 
+    # with both crossing metrics asked, the crossing-angle sweep's count
+    # is E_c: the all-metrics call launches no segment_crossing, (d2)'s
+    # E_c-only call launches it alone
     exact_planned = sorted([("crossing_angle_sum", (e_pad,)),
-                            ("occlusion_pairs", (x_pad,)),
-                            ("segment_crossing", (e_pad,))])
+                            ("occlusion_pairs", (x_pad,))])
     xruns = {}
     with recording_launches(*kernel_mods) as rec:
         for uk in (False, True):
@@ -4984,18 +4989,29 @@ def main() -> int:
                   f"(d) use_kernels={uk} launched the kernels on "
                   f"{seen_shapes[f'd{int(uk)}']}, the shapes checked and "
                   f"timed here are {exact_planned}")
+        ec_only = run_counted("d2", rec, lambda: evaluate_exact(
+            epos, eedges, config=dataclasses.replace(
+                xcfg, metrics=("edge_crossing",))))
     print("launches in (d) (strip_reversal, occlusion_pairs, "
           f"segment_crossing, crossing_angle_sum): "
-          f"{[sub_launches['d0'], sub_launches['d1']]}", flush=True)
+          f"{[sub_launches[k] for k in ('d0', 'd1', 'd2')]}", flush=True)
     for uk in (False, True):
         got_launches = sub_launches[f"d{int(uk)}"]
-        check(got_launches == (0, 1, 1, 1),
+        check(got_launches == (0, 1, 0, 1),
               f"(d) use_kernels={uk} launched {got_launches}, want one "
-              "launch of each exact-path kernel")
+              "occlusion_pairs and one crossing_angle_sum launch")
         check(xruns[uk].overflow == 0, "(d) overflow")
         check_scores(f"(d) exact use_kernels={uk}", xruns[uk],
                      EXACT_REFERENCE)
         print(f"(d) use_kernels={uk} {xruns[uk]}")
+    check(sub_launches["d2"] == (0, 0, 1, 0)
+          and seen_shapes["d2"] == [("segment_crossing", (e_pad,))],
+          f"(d2) E_c alone launched {sub_launches['d2']} on "
+          f"{seen_shapes['d2']}")
+    check(ec_only.edge_crossing == EXACT_REFERENCE["edge_crossing"]
+          and ec_only.edge_crossing_angle is None,
+          f"(d2) E_c alone {ec_only}")
+    print(f"(d2) E_c alone {ec_only.edge_crossing}")
     print("exact path: ok, equal to the JAX reference constants "
           f"(ints exact, floats rtol {RTOL})", flush=True)
 
@@ -5060,7 +5076,7 @@ def main() -> int:
     # (e3) the exact method of the legacy mirror is (d0)'s call
     check(e3.ok and e3.overflow == 0, f"(e3) {e3}")
     check_scores("(e3) server method='exact'", e3, EXACT_REFERENCE)
-    check(sub_launches["e3"] == (0, 1, 1, 1)
+    check(sub_launches["e3"] == (0, 1, 0, 1)
           and seen_shapes["e3"] == exact_planned,
           f"(e3) launched {sub_launches['e3']} on {seen_shapes['e3']}")
     # (e4) the drills launched only shapes checked in phase 2

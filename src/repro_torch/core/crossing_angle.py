@@ -7,7 +7,9 @@ defaults to 70 degrees (Huang et al. 2008).
 
 * :data:`DEFAULT_IDEAL` -- the ideal angle as the float32 rounding the
   reference computes, so plans and digests agree bit for bit.
-* :func:`crossing_angle_exact` -- the exact all-pairs E_ca.
+* :func:`crossing_angle_exact` -- the exact all-pairs E_ca, finished in
+  float32 by :func:`finish_exact` from the sweep's count and deviation
+  sum.
 * :func:`crossing_angle_enhanced` -- the strip decomposition of
   :mod:`repro_torch.core.crossing`: the reversal sweep that counts the
   crossings sums their deviations on the same pair mask (the paper's 2-D
@@ -42,10 +44,18 @@ def crossing_angle_exact(pos, edges, *, ideal=DEFAULT_IDEAL, block: int = 512,
     """
     count, dev = ops.crossing_angle_op(pos, edges, ideal=ideal,
                                        valid=edge_valid, row_block=block)
+    e_ca, dev_sum = finish_exact(count, dev)
+    return e_ca, count, dev_sum
+
+
+def finish_exact(count, dev):
+    """E_ca in float32 from an exact sweep's ``(count, deviation sum)``
+    (int64 / float64 scalar tensors): ``(e_ca, dev_sum)``, the sum
+    rounded to float32 once and ``e_ca = 1 - dev_sum / max(count, 1)``,
+    1.0 when there are no crossings."""
     dev_sum = dev.to(torch.float32)
     mean = dev_sum / torch.clamp_min(count, 1).to(torch.float32)
-    e_ca = torch.where(count > 0, 1.0 - mean, 1.0)
-    return e_ca, count, dev_sum
+    return torch.where(count > 0, 1.0 - mean, 1.0), dev_sum
 
 
 def crossing_angle_strips(pos, edges, n_strips: int, max_segments: int,

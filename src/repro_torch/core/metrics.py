@@ -14,9 +14,9 @@ evaluation shims; counterpart of :mod:`repro.core.metrics`.
 The exact path is the ground truth the enhanced (strip and grid) path is
 measured against, as in the paper's accuracy tables: O(V^2) occlusion,
 O(E^2) CCW crossing sweep, exact crossing angles.  On the CUDA device
-its three pairwise sweeps are hand-written kernels
-(:mod:`repro_torch.kernels`) whatever ``use_kernels`` says; on the CPU
-their plain PyTorch versions run.
+its pairwise sweeps are hand-written kernels (:mod:`repro_torch.kernels`)
+whatever ``use_kernels`` says; on the CPU their plain PyTorch versions
+run.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core.crossing import count_crossings_exact
-from repro_torch.core.crossing_angle import DEFAULT_IDEAL, crossing_angle_exact
+from repro_torch.core.crossing_angle import DEFAULT_IDEAL, finish_exact
 from repro_torch.core.edge_length import edge_length_variation
 from repro_torch.core.engine import ALL_METRICS, resolve_device
 from repro_torch.core.keys import EvalConfig, warn_once
@@ -52,9 +52,13 @@ def evaluate_exact(pos, edges, *, config: EvalConfig = None,
     (``n_strips``, orientation and backend are meaningless here and
     ignored).  ``use_kernels`` keeps the one thing it changes in the
     reference, how E_ca is finished from the kernel's count and
-    deviation sum: ``False`` forms ``e_ca`` in float32, as
-    :func:`crossing_angle_exact` does; ``True`` forms ``1 - dev / count``
-    in Python floats.
+    deviation sum: ``False`` forms ``e_ca`` in float32
+    (:func:`~repro_torch.core.crossing_angle.finish_exact`, as
+    ``crossing_angle_exact`` does); ``True`` forms ``1 - dev / count`` in
+    Python floats.  With both crossing metrics asked, one crossing-angle
+    sweep gives both: it tests each edge pair with the crossing sweep's
+    predicate, so its count is E_c.  With E_c alone the crossing sweep,
+    the cheaper, runs.
 
     Runs on CUDA unless ``device`` says otherwise, and raises when no CUDA
     device exists; pass ``device="cpu"`` to run on the CPU.
@@ -80,20 +84,29 @@ def evaluate_exact(pos, edges, *, config: EvalConfig = None,
             with span("exact.edge_length"):
                 out["edge_length_variation"] = float(
                     edge_length_variation(pos, edges))
+        # with both crossing metrics asked, the one sweep runs (and is
+        # waited on) in exact.crossing, and exact.crossing_angle only
+        # finishes E_ca from its count and deviation sum
+        both = "edge_crossing" in metrics and "edge_crossing_angle" in metrics
         if "edge_crossing" in metrics:
             with span("exact.crossing"):
-                out["edge_crossing"] = int(count_crossings_exact(pos, edges))
-        if "edge_crossing_angle" in metrics:
-            with span("exact.crossing_angle"):
-                if use_kernels:
+                if both:
                     count, dev_sum = ops.crossing_angle_op(
                         pos, edges, ideal=config.ideal_angle)
+                else:
+                    count = count_crossings_exact(pos, edges)
+                out["edge_crossing"] = int(count)
+        if "edge_crossing_angle" in metrics:
+            with span("exact.crossing_angle"):
+                if not both:
+                    count, dev_sum = ops.crossing_angle_op(
+                        pos, edges, ideal=config.ideal_angle)
+                if use_kernels:
                     count = int(count)
                     out["edge_crossing_angle"] = (
                         1.0 - float(dev_sum) / count if count > 0 else 1.0)
                 else:
-                    e_ca, count, _ = crossing_angle_exact(
-                        pos, edges, ideal=config.ideal_angle)
+                    e_ca, _ = finish_exact(count, dev_sum)
                     out["edge_crossing_angle"] = float(e_ca)
                 out["crossing_count_for_angle"] = int(count)
         return ReadabilityScores(overflow=0, n_vertices=int(pos.shape[0]),

@@ -191,6 +191,90 @@ def test_evaluate_exact_finishes_e_ca_per_route(family):
         assert getattr(by_route[False], f) == getattr(by_route[True], f)
 
 
+SWEEP_SUBSETS = {"all": ALL_METRICS, "e_c": ("edge_crossing",),
+                 "e_ca": ("edge_crossing_angle",),
+                 "both": ("edge_crossing", "edge_crossing_angle")}
+# (crossing sweeps, crossing-angle sweeps) of one exact call: one sweep
+# gives both crossing metrics, E_c alone takes the crossing sweep
+SWEEPS = {"all": (0, 1), "e_c": (1, 0), "e_ca": (0, 1), "both": (0, 1)}
+
+
+def count_sweeps(monkeypatch):
+    """Wrap both exact crossing sweeps of ``ops`` with counting spies."""
+    calls = {"crossing_count_op": 0, "crossing_angle_op": 0}
+
+    def spy(name):
+        fn = getattr(ops, name)
+
+        def counted(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(ops, name, counted)
+
+    for name in calls:
+        spy(name)
+    return calls
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("subset", list(SWEEP_SUBSETS))
+def test_evaluate_exact_sweeps_once_per_call(monkeypatch, subset,
+                                             use_kernels):
+    calls = count_sweeps(monkeypatch)
+    pos, edges = make_family("cluster")
+    cfg = EvalConfig(radius=RADIUS, metrics=SWEEP_SUBSETS[subset])
+    for k in (1, 2):
+        got = evaluate_exact(pos, edges, config=cfg,
+                             use_kernels=use_kernels, device="cpu")
+        assert (calls["crossing_count_op"],
+                calls["crossing_angle_op"]) == tuple(
+                    k * n for n in SWEEPS[subset])
+    for f in ALL_METRICS:
+        assert (getattr(got, f) is None) == (f not in cfg.metrics), f
+    assert (got.crossing_count_for_angle is None) == (
+        "edge_crossing_angle" not in cfg.metrics)
+
+
+def two_sweep_fields(pos, edges, ideal, use_kernels):
+    """The crossing fields as two separate sweeps give them: E_c from the
+    crossing sweep, E_ca and its count from the crossing-angle sweep,
+    finished per ``use_kernels`` route."""
+    pos, edges = T(pos), T(edges)
+    out = {"edge_crossing": int(count_crossings_exact(pos, edges))}
+    if use_kernels:
+        count, dev = ops.crossing_angle_op(pos, edges, ideal=ideal)
+        count = int(count)
+        out["edge_crossing_angle"] = (1.0 - float(dev) / count
+                                      if count > 0 else 1.0)
+    else:
+        e_ca, count, _ = crossing_angle_exact(pos, edges, ideal=ideal)
+        out["edge_crossing_angle"] = float(e_ca)
+    out["crossing_count_for_angle"] = int(count)
+    return out
+
+
+def bits(value):
+    return (type(value), value.hex() if isinstance(value, float) else value)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_one_sweep_equals_two_sweeps_bit_for_bit(family, use_kernels):
+    pos, edges = make_family(family)
+    cfg = EvalConfig(radius=RADIUS)
+    got = evaluate_exact(pos, edges, config=cfg, use_kernels=use_kernels,
+                         device="cpu")
+    others = evaluate_exact(pos, edges, config=EvalConfig(
+        radius=RADIUS, metrics=("node_occlusion", "minimum_angle",
+                                "edge_length_variation")),
+        use_kernels=use_kernels, device="cpu")
+    want = others._replace(**two_sweep_fields(pos, edges, cfg.ideal_angle,
+                                              use_kernels))
+    assert got.edge_crossing > 0
+    for f, g in got.asdict().items():
+        assert bits(g) == bits(getattr(want, f)), (f, g, getattr(want, f))
+
+
 def test_exact_counts_collinear_overlaps_the_enhanced_sweep_does_not():
     """Exact E_c counts collinear overlaps (the paper's convention); the
     strip sweep sees no order reversal on them."""

@@ -508,6 +508,30 @@ def test_crossing_angle_launches_counted_once_per_call(cuda):
     assert t_ang.crossing_angle_stats.LAUNCHES == before + 4
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("metrics,launches", [
+    (None, (0, 1)), (("edge_crossing",), (1, 0))])
+def test_exact_front_door_launches_one_crossing_sweep(cuda, metrics,
+                                                      launches):
+    """``evaluate_exact`` takes E_c from the crossing-angle kernel's count
+    when E_ca is asked too, and launches the crossing kernel for E_c
+    alone."""
+    from repro_torch.api import EvalConfig, evaluate_exact
+    pos, edges, _ = random_segments(4096, seed=11)
+    cfg = EvalConfig() if metrics is None else EvalConfig(metrics=metrics)
+    before = (t_cross.crossing_count.LAUNCHES,
+              t_ang.crossing_angle_stats.LAUNCHES)
+    got = evaluate_exact(pos, edges, config=cfg, device=cuda)
+    assert (t_cross.crossing_count.LAUNCHES - before[0],
+            t_ang.crossing_angle_stats.LAUNCHES - before[1]) == launches
+    x1, y1, x2, y2, _, v, u, ok = t_ops._edge_arrays(
+        *_torch([pos, edges], cuda), None)
+    want = int(t_cross.crossing_count(x1, y1, x2, y2, v, u, ok))
+    assert got.edge_crossing == want > 0
+    if metrics is None:
+        assert got.crossing_count_for_angle == want
+
+
 # ---------------------------------------------------------------------------
 # the near-parallel case (the open E_ca fault of ROADMAP queue 3)
 # ---------------------------------------------------------------------------
