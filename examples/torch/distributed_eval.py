@@ -2,8 +2,10 @@
 port, as ``examples/distributed_eval.py`` does on 8 simulated devices with
 the JAX package: the paper's exact and enhanced algorithms through the
 mesh drivers (row-sharded and ring-streamed exact N_c, row-sharded exact
-E_c, strip-sharded enhanced E_c), each exact count checked against the
-port's single-device exact path.
+E_c, strip-sharded enhanced E_c) and the exact front door over the mesh
+(``evaluate_exact(..., mesh=mesh)``: every score, the pair rows split over
+the ranks), each exact count checked against the port's single-device
+exact path.
 
 On the CUDA devices by default: one NCCL rank per card.  ``--device cpu``
 runs ``--world`` gloo ranks on the CPU (8 by default, as the reference's
@@ -50,9 +52,8 @@ def evaluate(mesh, device, say):
     dict (``say`` prints on rank 0)."""
     edges = random_edges(N_V, N_E, seed=0)
     pos = random_layout(N_V, seed=0)
-    exact = evaluate_exact(pos, edges, config=EvalConfig(
-        radius=RADIUS, metrics=("node_occlusion", "edge_crossing")),
-        device=device)
+    exact = evaluate_exact(pos, edges, config=EvalConfig(radius=RADIUS),
+                           device=device)
 
     # exact occlusion: replicated columns against the streaming ring
     t0 = time.time()
@@ -70,6 +71,23 @@ def evaluate(mesh, device, say):
           f"sharded {cross}, exact {exact.edge_crossing}")
     say(f"sharded exact E_c = {cross}  ({time.time() - t0:.2f}s)")
 
+    # the exact front door over the mesh: N_c, and E_c with E_ca from one
+    # crossing-angle sweep, on each rank's rows; M_a and M_l on every rank
+    t0 = time.time()
+    meshed = evaluate_exact(pos, edges, config=EvalConfig(radius=RADIUS),
+                            mesh=mesh)
+    check((meshed.node_occlusion, meshed.edge_crossing,
+           meshed.crossing_count_for_angle, meshed.minimum_angle,
+           meshed.edge_length_variation)
+          == (exact.node_occlusion, exact.edge_crossing,
+              exact.crossing_count_for_angle, exact.minimum_angle,
+              exact.edge_length_variation)
+          and abs(meshed.edge_crossing_angle - exact.edge_crossing_angle)
+          <= 1e-5 * abs(exact.edge_crossing_angle),
+          f"evaluate_exact over the mesh {meshed}, on one device {exact}")
+    say(f"evaluate_exact(mesh=...) E_ca = {meshed.edge_crossing_angle:.6f}"
+        f"  ({time.time() - t0:.2f}s)")
+
     # enhanced crossing: strips sharded over every rank (capacities from
     # the planner: undersized budgets drop segments)
     max_segments, cap = gridlib.plan_strips(pos, edges, N_STRIPS)
@@ -85,6 +103,7 @@ def evaluate(mesh, device, say):
         f"exact)")
     return {"mesh": list(mesh.axis_shape), "node_occlusion": occ,
             "ring_node_occlusion": occ_ring, "edge_crossing": cross,
+            "exact_mesh_crossing_angle": meshed.edge_crossing_angle,
             "enhanced_edge_crossing": int(enh), "overflow": overflow}
 
 

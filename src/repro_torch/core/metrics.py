@@ -33,6 +33,7 @@ from repro_torch.core.min_angle import minimum_angle
 from repro_torch.core.occlusion import count_occlusions_exact
 from repro_torch.core.scores import (ReadabilityScores, scores_from_batch,
                                      scores_from_result)
+from repro_torch.distributed import pairwise
 from repro_torch.kernels import ops
 from repro_torch.spans import span
 
@@ -44,8 +45,8 @@ EngineResult = engine.EngineResult
 
 
 def evaluate_exact(pos, edges, *, config: EvalConfig = None,
-                   use_kernels: bool = False,
-                   device=None) -> ReadabilityScores:
+                   use_kernels: bool = False, device=None,
+                   mesh=None) -> ReadabilityScores:
     """Exact (all-pairs, paper S3.1) readability scores of one layout.
 
     ``config`` supplies ``radius``, ``ideal_angle`` and the metric subset
@@ -62,8 +63,19 @@ def evaluate_exact(pos, edges, *, config: EvalConfig = None,
 
     Runs on CUDA unless ``device`` says otherwise, and raises when no CUDA
     device exists; pass ``device="cpu"`` to run on the CPU.
+
+    With ``mesh`` (a :class:`~repro_torch.distributed.compat.Mesh`) every
+    rank calls this with the same arguments and gets the same scores: the
+    all-pairs sweeps split their pair rows over the ranks
+    (:mod:`repro_torch.distributed.pairwise`, N_c and E_c / E_ca), the
+    partials are combined by collectives, and M_a and M_l are computed on
+    every rank.  The device is ``mesh.device``; a ``device`` that names
+    another raises.
     """
     config = config or EvalConfig()
+    if mesh is not None:
+        return _exact_over_mesh(pos, edges, config, use_kernels, device,
+                                mesh)
     with span("exact"):
         dev = resolve_device(device)
         pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
@@ -101,14 +113,83 @@ def evaluate_exact(pos, edges, *, config: EvalConfig = None,
                 if not both:
                     count, dev_sum = ops.crossing_angle_op(
                         pos, edges, ideal=config.ideal_angle)
-                if use_kernels:
-                    count = int(count)
-                    out["edge_crossing_angle"] = (
-                        1.0 - float(dev_sum) / count if count > 0 else 1.0)
+                out.update(_angle_fields(count, dev_sum, use_kernels))
+        return ReadabilityScores(overflow=0, n_vertices=int(pos.shape[0]),
+                                 n_edges=int(edges.shape[0]), **out)
+
+
+def _angle_fields(count, dev_sum, use_kernels):
+    """E_ca and its crossing count from a sweep's ``(count, deviation
+    sum)``, finished as ``use_kernels`` says."""
+    if use_kernels:
+        count = int(count)
+        e_ca = 1.0 - float(dev_sum) / count if count > 0 else 1.0
+    else:
+        e_ca, _ = finish_exact(count, dev_sum)
+    return {"edge_crossing_angle": float(e_ca),
+            "crossing_count_for_angle": int(count)}
+
+
+def _exact_over_mesh(pos, edges, config, use_kernels, device, mesh):
+    """:func:`evaluate_exact` over ``mesh``.  Each rank launches its
+    share of the crossing sweep first (E_c's, or one sweep for E_c and
+    E_ca), which is most of its device time, then its share of N_c's
+    sweep, M_a and M_l, which queue behind it, then one gather of every
+    partial (``exact.reduce``), and only then reads any result: a rank's
+    host waits once a call, for its own device and the other ranks
+    together, and its launches after the first overlap its own sweep.
+    The metric spans hold their launches; the root ``exact`` holds the
+    wait."""
+    if device is not None:
+        want = torch.device(device)
+        if want.type != mesh.device.type or (
+                want.index is not None and want != mesh.device):
+            raise ValueError(f"device={want} conflicts with the mesh's "
+                             f"device {mesh.device}")
+    with span("exact"):
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=mesh.device)
+        edges = torch.as_tensor(edges, dtype=torch.int32,
+                                device=mesh.device)
+        metrics = config.metrics
+        occlusion = "node_occlusion" in metrics
+        crossing = "edge_crossing" in metrics
+        angle = "edge_crossing_angle" in metrics
+        counts, sums = [], []
+        if crossing or angle:
+            with span("exact.crossing" if crossing
+                      else "exact.crossing_angle"):
+                if angle:
+                    count, dev_sum = pairwise.crossing_angle_rows(
+                        mesh, pos, edges, ideal=config.ideal_angle)
+                    sums.append(dev_sum)
                 else:
-                    e_ca, _ = finish_exact(count, dev_sum)
-                    out["edge_crossing_angle"] = float(e_ca)
-                out["crossing_count_for_angle"] = int(count)
+                    count = pairwise.crossing_rows(mesh, pos, edges)
+                counts.append(count)
+        if occlusion:
+            with span("exact.occlusion"):
+                counts.append(pairwise.occlusion_rows(mesh, pos,
+                                                      config.radius))
+        if "minimum_angle" in metrics:
+            with span("exact.min_angle"):
+                m_a, _ = minimum_angle(pos, edges)
+        if "edge_length_variation" in metrics:
+            with span("exact.edge_length"):
+                m_l = edge_length_variation(pos, edges)
+        if counts:
+            with span("exact.reduce"):
+                counts, sums = pairwise.sum_partials(mesh, counts, sums)
+        out = {}
+        if occlusion:
+            out["node_occlusion"] = int(counts[-1])
+        if "minimum_angle" in metrics:
+            out["minimum_angle"] = float(m_a)
+        if "edge_length_variation" in metrics:
+            out["edge_length_variation"] = float(m_l)
+        if crossing:
+            out["edge_crossing"] = int(counts[0])
+        if angle:
+            with span("exact.crossing_angle"):
+                out.update(_angle_fields(counts[0], sums[0], use_kernels))
         return ReadabilityScores(overflow=0, n_vertices=int(pos.shape[0]),
                                  n_edges=int(edges.shape[0]), **out)
 

@@ -79,7 +79,10 @@ def minimum_angle(pos, edges, *, n_vertices=None, edge_valid=None):
     inf = torch.full((n_seg,), math.inf, dtype=a.dtype, device=dev_)
     amin = inf.scatter_reduce(0, s, a, "amin")
     amax = (-inf).scatter_reduce(0, s, a, "amax")
-    deg = torch.bincount(s, minlength=n_seg)
+    # a scatter and not bincount, which reads the keys' range back to
+    # the host and so waits for the device
+    deg = torch.zeros(n_seg, dtype=torch.int64,
+                      device=dev_).scatter_add_(0, s, torch.ones_like(s))
 
     same = s[1:] == s[:-1]
     gaps = torch.where(same, a[1:] - a[:-1], math.inf)

@@ -8,8 +8,17 @@ Two strategies, as a Spark all-pairs join maps onto a set of ranks:
   is on every rank: no communication until the final sum.  Each rank
   launches the hand-written all-pairs kernel on its row range
   (:func:`~repro_torch.kernels.occlusion_pairs.occlusion_pairs_rows`,
-  :func:`~repro_torch.kernels.segment_crossing.crossing_count_rows`),
-  which counts the pairs with ``i`` in its rows and global ``j > i``.
+  :func:`~repro_torch.kernels.segment_crossing.crossing_count_rows`,
+  :func:`~repro_torch.kernels.crossing_angle_sum.
+  crossing_angle_stats_rows`), which counts the pairs with ``i`` in its
+  rows and global ``j > i`` (``occlusion_rows``, ``crossing_rows``,
+  ``crossing_angle_rows``: a rank's share, launched and not waited on).
+  Counts are summed by ``psum`` (``sum_counts``); the float64 deviation
+  sums are gathered and added in rank order on every rank
+  (``sum_in_rank_order``), so every rank gets the same bits on every
+  run.  ``sharded_*`` do both; a caller that launches every share before
+  any collective (``evaluate_exact(mesh=...)``) calls them apart, and
+  combines all its shares in one gather (``sum_partials``).
 * **ring** -- both sides split; ``n`` steps pass the column blocks around
   the ring of ranks (the out-of-memory path for layouts too large to
   replicate).  A step compares a rectangular block of local rows with a
@@ -28,8 +37,10 @@ import torch
 from repro_torch.core.validate import BackendUnavailableError, ReadabilityError
 from repro_torch.core.geometry import (pair_dist_sq, segments_cross,
                                        segments_cross_bool)
-from repro_torch.distributed.collectives import psum, psum_all, ring_shift
+from repro_torch.distributed.collectives import (all_gather, psum, psum_all,
+                                                 ring_shift)
 from repro_torch.distributed.sharding import mesh_rank, mesh_size
+from repro_torch.kernels.crossing_angle_sum import crossing_angle_stats_rows
 from repro_torch.kernels.occlusion_pairs import TILE as VERTEX_TILE
 from repro_torch.kernels.occlusion_pairs import occlusion_pairs_rows
 from repro_torch.kernels.ops import _edge_arrays, _pad1
@@ -62,9 +73,9 @@ def _inputs(mesh, pos, edges, valid):
     from repro_torch.core.engine import device_inputs
     pos, edges = device_inputs(pos, edges, mesh.device)
     n = (pos if edges is None else edges).shape[0]
-    valid = (torch.ones(n, dtype=torch.bool) if valid is None
-             else torch.as_tensor(valid))
-    return pos, edges, valid.to(pos.device, torch.bool)
+    if valid is None:   # made on the device: no copy waits on the stream
+        return pos, edges, torch.ones(n, dtype=torch.bool, device=pos.device)
+    return pos, edges, torch.as_tensor(valid).to(pos.device, torch.bool)
 
 
 def _my_rows(mesh, n_pad):
@@ -72,10 +83,24 @@ def _my_rows(mesh, n_pad):
     return mesh.rank * per, (mesh.rank + 1) * per
 
 
-def sharded_occlusion_count(mesh, pos, radius, *, valid=None):
-    """Row-sharded exact N_c over every mesh axis (the replicated
-    strategy): each rank counts the pairs whose first vertex lies in its
-    row range, then the ranks sum.  Returns an int64 scalar tensor."""
+def _edge_rows(mesh, pos, edges, edge_valid):
+    """The crossing kernels' edge arrays ``(x1, y1, x2, y2, theta, v, u,
+    valid)`` padded to a whole number of tiles per rank, and this rank's
+    row range."""
+    p, e, ok = _inputs(mesh, pos, edges, edge_valid)
+    arrays = _edge_arrays(p, e, ok)
+    e_pad = -(-e.shape[0] // (mesh.size * EDGE_TILE)) \
+        * (mesh.size * EDGE_TILE)
+    fills = (0.0, 0.0, 0.0, 0.0, 0.0, -1, -2, False)
+    return ([_pad1(a, e_pad, f) for a, f in zip(arrays, fills)],
+            _my_rows(mesh, e_pad))
+
+
+def occlusion_rows(mesh, pos, radius, *, valid=None):
+    """This rank's share of the row-sharded exact N_c (the replicated
+    strategy): the occluded pairs whose first vertex lies in its row
+    range.  Returns an int64 scalar tensor, launched and not waited on;
+    :func:`sum_counts` adds the ranks' shares."""
     def run():
         p, _, ok = _inputs(mesh, pos, None, valid)
         n_pad = -(-p.shape[0] // (mesh.size * VERTEX_TILE)) \
@@ -83,28 +108,100 @@ def sharded_occlusion_count(mesh, pos, radius, *, valid=None):
         x = _pad1(p[:, 0], n_pad, 0.0)
         y = _pad1(p[:, 1], n_pad, 0.0)
         ok = _pad1(ok, n_pad, False)
-        return psum(mesh, occlusion_pairs_rows(x, y, ok, radius,
-                                               *_my_rows(mesh, n_pad)))
+        return occlusion_pairs_rows(x, y, ok, radius, *_my_rows(mesh, n_pad))
     return _run_sharded("row-sharded occlusion", mesh, run)
+
+
+def crossing_rows(mesh, pos, edges, *, edge_valid=None, block: int = 256):
+    """This rank's share of the row-sharded exact E_c: the crossing pairs
+    whose first edge lies in its row range (an int64 scalar tensor, not
+    waited on).  ``block`` is the plain route's row block."""
+    def run():
+        (x1, y1, x2, y2, _, v, u, ok), rows = _edge_rows(mesh, pos, edges,
+                                                         edge_valid)
+        return crossing_count_rows(x1, y1, x2, y2, v, u, ok, *rows,
+                                   row_block=block)
+    return _run_sharded("row-sharded crossing", mesh, run)
+
+
+def crossing_angle_rows(mesh, pos, edges, *, ideal, edge_valid=None,
+                        block: int = 512):
+    """This rank's share of the row-sharded exact E_c and E_ca from one
+    sweep: the crossing pairs whose first edge lies in its row range and
+    the sum of their deviations ``|ideal - a_c| / ideal``.  Returns
+    ``(int64 count, float64 deviation sum)`` scalar tensors, not waited
+    on; ``block`` is the plain route's row block."""
+    def run():
+        arrays, rows = _edge_rows(mesh, pos, edges, edge_valid)
+        return crossing_angle_stats_rows(*arrays, *rows, ideal=ideal,
+                                         row_block=block)
+    return _run_sharded("row-sharded crossing angle", mesh, run)
+
+
+def sum_counts(mesh, t):
+    """The ranks' partial counts summed (``psum``); every rank gets the
+    sum."""
+    return _run_sharded("sum of partial counts", mesh, lambda: psum(mesh, t))
+
+
+def sum_in_rank_order(mesh, t):
+    """The ranks' float64 partial sums gathered and added in rank order
+    on every rank, so that every rank gets the same bits on every run."""
+    def run():
+        parts = all_gather(mesh, t.reshape(1))
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+    return _run_sharded("sum of partial sums", mesh, run)
+
+
+def sum_partials(mesh, counts, sums=()):
+    """Every rank's int64 partial counts and float64 partial sums (scalar
+    tensors) in one gather: returns ``(counts, sums)``, each count summed
+    over the ranks and each sum added in rank order, as
+    :func:`sum_counts` and :func:`sum_in_rank_order` give them, on every
+    rank."""
+    def run():
+        n = len(counts)
+        mine = torch.cat([c.reshape(1) for c in counts]
+                         + [s.reshape(1).view(torch.int64) for s in sums])
+        rows = all_gather(mesh, mine).reshape(-1, mine.shape[0])
+        total = rows[0, n:].view(torch.float64)
+        for row in rows[1:]:
+            total = total + row[n:].view(torch.float64)
+        summed = rows[:, :n].sum(dim=0)
+        return ([summed[k] for k in range(n)],
+                [total[k] for k in range(len(sums))])
+    return _run_sharded("sum of partials", mesh, run)
+
+
+def sharded_occlusion_count(mesh, pos, radius, *, valid=None):
+    """Row-sharded exact N_c over every mesh axis (the replicated
+    strategy): :func:`occlusion_rows` on each rank, then the ranks sum.
+    Returns an int64 scalar tensor."""
+    return sum_counts(mesh, occlusion_rows(mesh, pos, radius, valid=valid))
 
 
 def sharded_crossing_count(mesh, pos, edges, *, edge_valid=None,
                            block: int = 256):
-    """Row-sharded exact E_c (the replicated strategy): each rank counts
-    the crossing pairs whose first edge lies in its row range, then the
-    ranks sum.  ``block`` is the plain route's row block.  Returns an
+    """Row-sharded exact E_c (the replicated strategy):
+    :func:`crossing_rows` on each rank, then the ranks sum.  Returns an
     int64 scalar tensor."""
-    def run():
-        p, e, ok = _inputs(mesh, pos, edges, edge_valid)
-        x1, y1, x2, y2, _, v, u, ok = _edge_arrays(p, e, ok)
-        e_pad = -(-e.shape[0] // (mesh.size * EDGE_TILE)) \
-            * (mesh.size * EDGE_TILE)
-        args = [_pad1(a, e_pad, f) for a, f in
-                ((x1, 0.0), (y1, 0.0), (x2, 0.0), (y2, 0.0), (v, -1),
-                 (u, -2), (ok, False))]
-        return psum(mesh, crossing_count_rows(
-            *args, *_my_rows(mesh, e_pad), row_block=block))
-    return _run_sharded("row-sharded crossing", mesh, run)
+    return sum_counts(mesh, crossing_rows(mesh, pos, edges,
+                                          edge_valid=edge_valid, block=block))
+
+
+def sharded_crossing_angle_stats(mesh, pos, edges, *, ideal,
+                                 edge_valid=None, block: int = 512):
+    """Row-sharded exact E_c and E_ca from one sweep (the replicated
+    strategy): :func:`crossing_angle_rows` on each rank; the counts
+    summed, the deviation sums added in rank order
+    (:func:`sum_in_rank_order`).  Returns ``(int64 count, float64
+    deviation sum)`` scalar tensors."""
+    count, dev_sum = crossing_angle_rows(mesh, pos, edges, ideal=ideal,
+                                         edge_valid=edge_valid, block=block)
+    return sum_counts(mesh, count), sum_in_rank_order(mesh, dev_sum)
 
 
 def ring_occlusion_count(mesh, pos, radius, *, valid=None):

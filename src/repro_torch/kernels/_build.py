@@ -47,9 +47,13 @@ ENTRY_POINTS = {
         ctypes.c_int] * 3 + [_P] * 2),
     "crossing_angle_sum": ("crossing_angle_sum_launch", [_P] * 8 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_float] + [_P] * 3),
+    "crossing_angle_sum_rows": ("crossing_angle_sum_rows_launch", [_P] * 8
+                                + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+                                + [_P] * 3),
 }
 ENTRY_SOURCE = {"strip_reversal_bf16": "strip_reversal",
-                "occlusion_pairs_bf16": "occlusion_pairs"}
+                "occlusion_pairs_bf16": "occlusion_pairs",
+                "crossing_angle_sum_rows": "crossing_angle_sum"}
 
 
 def source_of(name: str) -> str:

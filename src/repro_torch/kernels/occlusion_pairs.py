@@ -16,7 +16,7 @@ partial per ``(TILE, TILE)`` tile of the pair matrix, summed afterwards.
   one rank's share in the row-sharded driver
   (:func:`repro_torch.distributed.pairwise.sharded_occlusion_count`).
   The same kernel, launched on the range's tiles only (counted in
-  ``occlusion_pairs_rows.LAUNCHES``).
+  ``occlusion_pairs_rows.LAUNCHES``, its tiles in ``.TILES``).
 
 What bounds the kernel on an H100: per-pair ALU instructions on the CUDA
 cores (two subtracts, two multiplies, one add, the compare, the
@@ -155,11 +155,16 @@ def occlusion_pairs_rows(x, y, valid, radius, row0, row1):
     """The occluded pairs ``i < j`` of :func:`occlusion_pairs` with ``i`` in
     ``[row0, row1)``; on CUDA both ends are multiples of :data:`TILE`.
     Summed over a partition of the rows, this is the whole count."""
-    return _route(x, y, valid, radius, (int(row0), int(row1)),
-                  occlusion_pairs_rows)
+    rows = (int(row0), int(row1))
+    out = _route(x, y, valid, radius, rows, occlusion_pairs_rows)
+    if x.device.type == "cuda":
+        occlusion_pairs_rows.TILES += row_tile_count(
+            x.shape[0] // TILE, rows[0] // TILE, (rows[1] - rows[0]) // TILE)
+    return out
 
 
 occlusion_pairs.LAUNCHES = 0
 occlusion_pairs.LAUNCHES_BF16 = 0
 occlusion_pairs_rows.LAUNCHES = 0
 occlusion_pairs_rows.LAUNCHES_BF16 = 0
+occlusion_pairs_rows.TILES = 0

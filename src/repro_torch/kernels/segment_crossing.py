@@ -17,7 +17,7 @@ the diagonal of the pair matrix, summed afterwards.
   one rank's share in the row-sharded driver
   (:func:`repro_torch.distributed.pairwise.sharded_crossing_count`).  The
   same kernel on the range's tiles only (counted in
-  ``crossing_count_rows.LAUNCHES``).
+  ``crossing_count_rows.LAUNCHES``, its tiles in ``.TILES``).
 
 What bounds the kernel on an H100: per-pair ALU work on the CUDA cores
 (about 31 issued instructions: the cross products rounded op by op, the
@@ -153,9 +153,15 @@ def crossing_count_rows(x1, y1, x2, y2, v, u, valid, row0, row1, *,
     """The crossing pairs ``i < j`` of :func:`crossing_count` with ``i`` in
     ``[row0, row1)``; on CUDA both ends are multiples of :data:`TILE`.
     Summed over a partition of the rows, this is the whole count."""
-    return _route((x1, y1, x2, y2, v, u, valid), row_block,
-                  (int(row0), int(row1)), crossing_count_rows)
+    rows = (int(row0), int(row1))
+    out = _route((x1, y1, x2, y2, v, u, valid), row_block, rows,
+                 crossing_count_rows)
+    if x1.device.type == "cuda":
+        crossing_count_rows.TILES += row_tile_count(
+            x1.shape[0] // TILE, rows[0] // TILE, (rows[1] - rows[0]) // TILE)
+    return out
 
 
 crossing_count.LAUNCHES = 0
 crossing_count_rows.LAUNCHES = 0
+crossing_count_rows.TILES = 0

@@ -452,8 +452,8 @@ def distributed(world):
     family, the near-parallel layouts through the distributed front door,
     the serving mesh policy, a distributed search step, the
     range-partitioned embedding lookup (one axis, and the model axis of
-    the 2-D mesh) and, at 4 ranks,
-    ``examples/torch/distributed_eval.py``'s counts."""
+    the 2-D mesh), ``evaluate_exact(mesh=...)`` (:func:`exact_mesh_twin`)
+    and, at 4 ranks, ``examples/torch/distributed_eval.py``'s counts."""
     import torch
 
     from repro_torch.api import Evaluator
@@ -464,6 +464,7 @@ def distributed(world):
     from repro_torch.distributed.collectives import sharded_embedding_lookup
     from repro_torch.distributed.compat import make_mesh
     from repro_torch.distributed.gridded import sharded_reversal_stats
+    from repro_torch.kernels.ops import crossing_angle_op
     from repro_torch.kernels.fixtures import near_parallel_layouts, \
         parity_family
     from repro_torch.launch.elastic import serving_mesh
@@ -481,6 +482,11 @@ def distributed(world):
                                                           block=128))
     pos_t = torch.from_numpy(pos)
     edges_t = torch.from_numpy(edges)
+    cnt, dsum = pairwise.sharded_crossing_angle_stats(mesh2, pos, edges,
+                                                      ideal=1.2, block=128)
+    single = crossing_angle_op(pos_t, edges_t, ideal=1.2)
+    out["crossing_angle"] = [int(cnt), float(dsum)]
+    out["crossing_angle_single"] = [int(single[0]), float(single[1])]
     segs = gridlib.build_strip_segments(pos_t, edges_t, 64, 16384)
     buckets = gridlib.bucketize_segments(segs, 64, cap=128)
     (cnt,) = sharded_reversal_stats(mesh2, buckets)
@@ -534,11 +540,61 @@ def distributed(world):
         out["embedding_lookup_2d"] = sharded_embedding_lookup(
             mesh2, torch.from_numpy(table), torch.from_numpy(ids),
             axis="model").tolist()
+    out["exact_mesh"] = exact_mesh_twin(mesh, mesh2)
     if world == 4:
         # examples/torch/distributed_eval.py on the same (2, 2) mesh it
         # makes at 4 ranks
         out["distributed_eval"] = distributed_eval_example().evaluate(
             mesh2, dev, lambda line: None)
+    return out
+
+
+# the metric subsets that change evaluate_exact's route over a mesh
+EXACT_SUBSETS = {
+    "all": None,
+    "crossing": ("edge_crossing",),
+    "crossing_angle": ("edge_crossing_angle",),
+    "occlusion": ("node_occlusion",),
+}
+
+
+def exact_mesh_twin(mesh, mesh2):
+    """``evaluate_exact(mesh=...)`` on :func:`distributed_graph` (over the
+    2-D mesh where the ranks allow one) and on every parity family, for
+    each subset of :data:`EXACT_SUBSETS`: the scores, the
+    ``exact.reduce`` spans of the call, and whether a second call gave
+    the same E_ca bits."""
+    from repro_torch import spans
+    from repro_torch.core.keys import EvalConfig
+    from repro_torch.core.metrics import evaluate_exact
+    from repro_torch.kernels.fixtures import parity_family
+
+    layouts = {"graph": (distributed_graph(), mesh2)}
+    for kind in FAMILIES:
+        layouts[kind] = (parity_family(kind), mesh)
+    out = {}
+    for name, ((pos, edges), m) in layouts.items():
+        for subset, metrics in EXACT_SUBSETS.items():
+            cfg = EvalConfig(radius=RADIUS) if metrics is None else \
+                EvalConfig(radius=RADIUS, metrics=metrics)
+            spans.enable()
+            try:
+                res = evaluate_exact(pos, edges, config=cfg, mesh=m)
+                recorded = {s.id: s for s in spans.drain().spans}
+            finally:
+                spans.disable()
+            again = evaluate_exact(pos, edges, config=cfg, mesh=m)
+            reduces = [s for s in recorded.values()
+                       if s.name == "exact.reduce"]
+            out[f"{name}/{subset}"] = {
+                "scores": fetch(res),
+                "reduce_spans": len(reduces),
+                "reduce_parents": sorted(recorded[s.parent].name
+                                         for s in reduces),
+                "reduce_roots": sorted({recorded[s.call].name
+                                        for s in reduces}),
+                "same_bits": str(again.edge_crossing_angle)
+                == str(res.edge_crossing_angle)}
     return out
 
 

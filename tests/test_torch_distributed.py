@@ -28,7 +28,15 @@ at 4 ranks: the drivers flatten its axes):
   before it, is held in ``tests/test_torch_lm.py``);
 * ``examples/torch/distributed_eval.py``'s counts at 4 ranks equal the
   reference's oracles, as ``examples/distributed_eval.py`` checks its
-  own.
+  own;
+* ``evaluate_exact(mesh=...)``, for every metric subset that changes its
+  route, equals the port's one-device ``evaluate_exact`` (counts, M_a and
+  M_l exactly, E_ca at rtol 1e-5), the benchmark's plain reference
+  (``bench.reference.scores.exact_scores``) and the JAX package's
+  ``evaluate_exact`` (counts exactly, scores at rtol 1e-5); the one
+  collective that combines the ranks' partials runs in one
+  ``exact.reduce`` span under the root ``exact``, and a second call
+  gives the same E_ca bits.
 """
 
 import jax.numpy as jnp
@@ -39,10 +47,14 @@ import torch
 import repro.api as ref_api
 from repro.core import grid as ref_grid
 from repro.core.crossing import bucket_reversal_stats
+from repro.core.metrics import evaluate_exact as ref_evaluate_exact
 from repro.graphs.datasets import random_edges as ref_random_edges
 from repro.graphs.layouts import random_layout as ref_random_layout
 from repro.kernels import ref as ref_oracles
 import _torch_dist as dist_
+from bench.reference import scores as bench_scores
+from repro_torch.core.keys import EvalConfig
+from repro_torch.core.metrics import evaluate_exact
 from repro_torch.distributed.collectives import sharded_embedding_lookup
 from repro_torch.distributed.compat import make_mesh
 from repro_torch.kernels.fixtures import parity_family
@@ -98,11 +110,75 @@ def ref(started):
     table, ids = dist_.embedding_inputs()
     out["take"] = np.asarray(jnp.take(jnp.asarray(table), jnp.asarray(ids),
                                       axis=0))
+    out["exact_mesh"] = exact_one_device()
     # examples/distributed_eval.py's graph and radius
     out["distributed_eval"] = oracles(
         ref_random_layout(1500, seed=0), ref_random_edges(1500, 3000, seed=0),
         1.0)
     return out
+
+
+# collectives a call of evaluate_exact(mesh=...) makes, by metric subset:
+# one gather of every count and deviation sum the call's sweeps made
+EXACT_REDUCES = {"all": 1, "crossing": 1, "crossing_angle": 1,
+                 "occlusion": 1}
+
+
+def exact_one_device():
+    """The port's one-device ``evaluate_exact`` on the CPU, the plain
+    reference's exact scores and the JAX package's ``evaluate_exact``, of
+    the mesh twin's layouts."""
+    layouts = {"graph": dist_.distributed_graph()}
+    for kind in dist_.FAMILIES:
+        layouts[kind] = parity_family(kind)
+    out = {}
+    ideal = EvalConfig().ideal_angle
+    for name, (pos, edges) in layouts.items():
+        plain = bench_scores.exact_scores(
+            torch.from_numpy(pos), torch.from_numpy(edges),
+            radius=dist_.RADIUS, ideal=ideal)
+        for subset, metrics in dist_.EXACT_SUBSETS.items():
+            kw = {} if metrics is None else {"metrics": metrics}
+            one = evaluate_exact(pos, edges, device="cpu",
+                                 config=EvalConfig(radius=dist_.RADIUS, **kw))
+            jax_ = ref_evaluate_exact(pos, edges, config=ref_api.EvalConfig(
+                radius=dist_.RADIUS, **kw))
+            out[f"{name}/{subset}"] = (dist_.fetch(one), plain,
+                                       dist_.fetch(jax_))
+    return out
+
+
+@pytest.mark.parametrize("subset", list(dist_.EXACT_SUBSETS))
+@pytest.mark.parametrize("world", WORLDS)
+def test_evaluate_exact_over_a_mesh(runs, ref, world, subset):
+    """Row-sharded kernels 2 and 4 (kernel 3 for E_c alone) through the
+    exact front door: every rank's scores (``spawn`` holds them equal)
+    against the one-device route (counts, M_a and M_l exactly), the
+    plain reference and the JAX package's ``evaluate_exact`` (counts
+    exactly, scores at ``RTOL``)."""
+    for name in ("graph",) + dist_.FAMILIES:
+        key = f"{name}/{subset}"
+        got = runs[world]["exact_mesh"][key]
+        one, plain, jax_ = ref["exact_mesh"][key]
+        for f in INT_FIELDS + FLOAT_FIELDS:
+            value = got["scores"][f]
+            assert (value is None) == (one[f] is None) == (jax_[f] is None), \
+                (world, key, f)
+            if value is None:
+                continue
+            if f in INT_FIELDS:
+                assert value == one[f] == jax_[f] == int(plain[f]), \
+                    (world, key, f)
+                continue
+            if f != "edge_crossing_angle":
+                assert value == one[f], (world, key, f)
+            for want in (one[f], plain[f], jax_[f]):
+                np.testing.assert_allclose(value, float(want), rtol=RTOL,
+                                           err_msg=f"{world}/{key}/{f}")
+        assert got["reduce_spans"] == EXACT_REDUCES[subset], key
+        assert got["reduce_parents"] == ["exact"] * EXACT_REDUCES[subset]
+        assert got["reduce_roots"] == ["exact"]
+        assert got["same_bits"], key
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -113,6 +189,12 @@ def test_pairwise_drivers_match_oracles(runs, ref, world):
     assert out["occlusion"] == occ
     assert out["ring_occlusion"] == occ
     assert out["crossing"] == cross
+    # one row-sharded kernel-4 sweep: E_c's count and E_ca's deviation
+    # sum, added in rank order, against the one-device sweep
+    cnt, dev = out["crossing_angle"]
+    assert cnt == out["crossing_angle_single"][0] == cross
+    np.testing.assert_allclose(dev, out["crossing_angle_single"][1],
+                               rtol=RTOL)
 
 
 @pytest.mark.parametrize("world", WORLDS)

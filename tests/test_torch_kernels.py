@@ -674,18 +674,20 @@ def crossing_rows_case(device, parts):
 def test_row_ranges_partition_the_plain_counts(parts):
     """Over tile-aligned row ranges that partition the rows, the row-range
     plain versions sum to the whole count (and each range's wrapper on the
-    CPU is its plain version, no launch counted)."""
+    CPU is its plain version, no launch or tile counted)."""
     x, y, ok = occlusion_rows_case("cpu", parts)
     ranges = row_ranges(x.shape[0], t_occ.TILE, parts)
-    before = t_occ.occlusion_pairs_rows.LAUNCHES
-    got = [int(t_occ.occlusion_pairs_rows(x, y, ok, 0.5, *r))
-           for r in ranges]
-    assert t_occ.occlusion_pairs_rows.LAUNCHES == before
+    rows = t_occ.occlusion_pairs_rows
+    before = (rows.LAUNCHES, rows.TILES)
+    got = [int(rows(x, y, ok, 0.5, *r)) for r in ranges]
+    assert (rows.LAUNCHES, rows.TILES) == before
     assert sum(got) == int(t_occ.occlusion_pairs_plain(x, y, ok, 0.5)) > 0
     x1, y1, x2, y2, _, v, u, ok = crossing_rows_case("cpu", parts)
     ranges = row_ranges(x1.shape[0], t_cross.TILE, parts)
-    got = [int(t_cross.crossing_count_rows(x1, y1, x2, y2, v, u, ok, *r))
-           for r in ranges]
+    rows = t_cross.crossing_count_rows
+    before = (rows.LAUNCHES, rows.TILES)
+    got = [int(rows(x1, y1, x2, y2, v, u, ok, *r)) for r in ranges]
+    assert (rows.LAUNCHES, rows.TILES) == before
     want = int(t_cross.crossing_count_plain(x1, y1, x2, y2, v, u, ok))
     assert sum(got) == want > 0
 
@@ -707,7 +709,8 @@ def test_row_tile_count():
 def test_row_range_kernels_match_plain_on_card(cuda, parts):
     """Kernels 2 and 3 on each row range of a partition (a trailing empty
     range launches nothing) against their plain versions on the same
-    range; the ranges sum to the full-range launch."""
+    range; the ranges sum to the full-range launch, and their ``TILES``
+    to the whole triangle of tiles."""
     for wrapper, plain, full, case, tile, call in (
             (t_occ.occlusion_pairs_rows,
              lambda a, r: t_occ.occlusion_pairs_plain(*a, 0.5, rows=r),
@@ -723,7 +726,7 @@ def test_row_range_kernels_match_plain_on_card(cuda, parts):
              lambda a, r: t_cross.crossing_count_rows(*a, *r))):
         args = case(cuda, parts)
         ranges = row_ranges(args[0].shape[0], tile, parts)
-        total = 0
+        total, tiles = 0, wrapper.TILES
         for r in ranges:
             before = wrapper.LAUNCHES
             got = int(call(args, r))
@@ -732,3 +735,146 @@ def test_row_range_kernels_match_plain_on_card(cuda, parts):
             assert got == int(plain(args, r)), r
             total += got
         assert total == int(full(args))
+        n_t = args[0].shape[0] // tile
+        assert wrapper.TILES - tiles == n_t * (n_t + 1) // 2
+
+
+# ---------------------------------------------------------------------------
+# kernel 4 on row ranges, and the row split of the sharded drivers
+# ---------------------------------------------------------------------------
+
+def _rows_of(n, split):
+    """Row ranges partitioning ``[0, n)``: ``split`` tile-aligned parts,
+    or (``"ragged"``) ends that are no multiples of the tile."""
+    if split == "ragged":
+        return [(0, 300), (300, 1111), (1111, n)]
+    return row_ranges(n, t_cross.TILE, split)
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, "ragged"])
+def test_crossing_angle_rows_partition_the_plain_sweep(split):
+    """Over row ranges that partition the rows, the plain twin's counts
+    sum to the whole sweep's exactly and its float64 deviation sums to
+    the whole sum (another order of float64 additions); on the CPU no
+    launch or tile is counted."""
+    args = crossing_rows_case("cpu", 4)
+    count, dev = t_ang.crossing_angle_plain(*args, ideal=DEFAULT_IDEAL)
+    rows = t_ang.crossing_angle_stats_rows
+    before = (rows.LAUNCHES, rows.TILES)
+    parts = [rows(*args, *r, ideal=DEFAULT_IDEAL)
+             for r in _rows_of(args[0].shape[0], split)]
+    assert (rows.LAUNCHES, rows.TILES) == before
+    assert sum(int(c) for c, _ in parts) == int(count) > 0
+    assert math.isclose(sum(float(d) for _, d in parts), float(dev),
+                        rel_tol=1e-12)
+
+
+# the even row split's shares of the upper triangle over 4 ranks
+FOUR_RANK_SHARES = (7 / 16, 5 / 16, 3 / 16, 1 / 16)
+
+
+def split_tiles(n_pad, tile, ranks):
+    """The tiles each rank of ``pairwise._my_rows``'s even row split
+    sweeps, and the tiles per side."""
+    from repro_torch.distributed import pairwise
+    n_t = n_pad // tile
+    tiles = []
+    for rank in range(ranks):
+        r0, r1 = pairwise._my_rows(types.SimpleNamespace(size=ranks,
+                                                         rank=rank), n_pad)
+        tiles.append(t_occ.row_tile_count(n_t, r0 // tile,
+                                          (r1 - r0) // tile))
+    return tiles, n_t
+
+
+def test_even_row_split_at_soc_epinions1_size():
+    """soc-Epinions1's 508,837 edges pad to 508,928 (497 row tiles a
+    rank of 1,988); the even row split's tiles partition the triangle,
+    rank 0 holding 7/16 of it, to within a row of tiles."""
+    tiles, n_t = split_tiles(-(-508837 // 1024) * 1024, t_cross.TILE, 4)
+    assert n_t == 1988
+    total = n_t * (n_t + 1) // 2
+    assert sum(tiles) == total
+    for got, share in zip(tiles, FOUR_RANK_SHARES):
+        assert abs(got / total - share) <= 1 / n_t
+
+
+@pytest.mark.gpu
+def test_crossing_angle_rows_kernel_on_card(cuda):
+    """Kernel 4 on 4 even row ranges: the counts sum to the full launch's
+    exactly, the float64 deviation sums to its sum at rtol 1e-12, each
+    range equals the plain twin on that range (deviation at rtol 1e-5:
+    float32 partials in another order), the ranges' ``TILES`` add up to
+    the whole triangle and their shares are 7/16, 5/16, 3/16 and 1/16 to
+    within a row of tiles."""
+    layout = random_segments(20000, seed=23)
+    args = list(edge_arrays(layout, cuda))
+    n_pad = -(-args[0].shape[0] // (4 * t_cross.TILE)) * (4 * t_cross.TILE)
+    fills = (0.0, 0.0, 0.0, 0.0, 0.0, -1, -2, False)
+    args = [t_ops._pad1(a, n_pad, f) for a, f in zip(args, fills)]
+    count, dev = t_ang.crossing_angle_stats(*args, ideal=DEFAULT_IDEAL)
+    rows = t_ang.crossing_angle_stats_rows
+    tiles, n_t = split_tiles(n_pad, t_cross.TILE, 4)
+    got_c, got_d = 0, 0.0
+    for rank, r in enumerate(row_ranges(n_pad, t_cross.TILE, 4)):
+        before = (rows.LAUNCHES, rows.TILES)
+        c, d = rows(*args, *r, ideal=DEFAULT_IDEAL)
+        torch.cuda.synchronize()
+        assert (rows.LAUNCHES - before[0], rows.TILES - before[1]) == (
+            1, tiles[rank])
+        pc, pd = t_ang.crossing_angle_plain(*args, ideal=DEFAULT_IDEAL,
+                                            rows=r)
+        assert int(c) == int(pc)
+        assert math.isclose(float(d), float(pd), rel_tol=RTOL)
+        got_c += int(c)
+        got_d += float(d)
+    assert got_c == int(count) > 0
+    assert math.isclose(got_d, float(dev), rel_tol=1e-12)
+    total = n_t * (n_t + 1) // 2
+    assert sum(tiles) == total
+    for got, share in zip(tiles, FOUR_RANK_SHARES):
+        assert abs(got / total - share) <= 1 / n_t
+
+
+@pytest.mark.gpu
+def test_exact_front_door_over_a_one_rank_nccl_mesh(cuda):
+    """``evaluate_exact(mesh=...)`` on one NCCL rank: the row entries over
+    every row, whose tiles are the whole triangle in the whole launch's
+    order, and NCCL's sum and gather of one rank; every score bit for
+    bit the one-device route's, for each metric subset that changes the
+    route."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.api import EvalConfig, evaluate_exact
+    from repro_torch.distributed.compat import make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh((1,), ("x",), device=dev)
+        assert mesh.backend == "nccl"
+        pos, edges, _ = random_segments(6000, seed=31)
+        for metrics in (None, ("edge_crossing",), ("edge_crossing_angle",),
+                        ("node_occlusion",)):
+            cfg = EvalConfig() if metrics is None else \
+                EvalConfig(metrics=metrics)
+            before = t_ang.crossing_angle_stats_rows.TILES
+            got = evaluate_exact(pos, edges, config=cfg, mesh=mesh)
+            want = evaluate_exact(pos, edges, config=cfg, device=dev)
+            assert got == want, metrics
+            n_t = -(-edges.shape[0] // t_cross.TILE)
+            swept = t_ang.crossing_angle_stats_rows.TILES - before
+            asked = cfg.metrics
+            assert swept == (n_t * (n_t + 1) // 2
+                             if "edge_crossing_angle" in asked else 0)
+    finally:
+        dist.destroy_process_group()
